@@ -1,0 +1,613 @@
+"""Window programs of the default extract on the card.
+
+Port of the 2-bit (NCH=2) path of ``methyldackel_tpu/parallel/device.py``:
+single-window dispatch (``_fused_dispatch_v3``), the K-window group in
+candidate space (``_fused_dispatch_v3_multi_cand``) and in window space
+(``_fused_dispatch_v3_multi``), and ``make_device_backend`` with the contract
+``methyldackel_tpu.engine.extract.run_extract`` drives: the backend is
+callable, ``.dispatch(...)`` returns a handle with ``.get()``, and
+``.dispatch_group(cfg, items, pad_to)`` returns a list of handles.
+
+The host work (row classification, arbitration, 2-bit packing, group
+tables, bitmaps) is ``host_prep``; the device work is one launch of
+``ops.pileup.pileup2_tiles`` per dispatch. The numpy arrays go to the device
+in one place, ``DeviceBackend._launch``: the upload, the launch and the copy
+back into pinned host memory run on the backend's own CUDA stream, and an
+event marks the copy done. ``.get()`` waits for it on the engine's drain
+threads.
+
+Windows this slice does not serve on the card (``--minOppositeDepth > 0``,
+a BED strand column, reads longer than 256 bp, ``MDTPU_FUSED=v2``,
+``MDTPU_NO_PALLAS=1``) go to the exact host engine through a counted route:
+``DeviceBackend.host_routed`` counts them and the first one of each reason
+writes a line to stderr.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import os
+import sys
+import threading
+
+import numpy as np
+import torch
+
+from methyldackel_tpu.engine.extract import compute_window_counters_host
+from methyldackel_tpu.ops import semantics as sem
+
+from ..ops.pileup import T, pileup2_tiles
+from . import host_prep as hp
+
+
+class WindowHandle:
+    """Deferred window counters: ``.get()`` returns uint32 [W, 4]."""
+
+    __slots__ = ("_fn", "_val")
+
+    def __init__(self, fn=None, value=None):
+        self._fn = fn
+        self._val = value
+
+    def get(self):
+        if self._fn is not None:
+            self._val = self._fn()
+            self._fn = None
+        return self._val
+
+
+class _GroupResult:
+    """Shared deferred result of one group dispatch: the first ``.get(k)``
+    runs the group finalize (one readback for all windows) and later ones
+    slice it. Drain threads may race the first get."""
+
+    __slots__ = ("_fn", "_vals", "_lock")
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._vals = None
+        self._lock = threading.Lock()
+
+    def get(self, k):
+        with self._lock:
+            if self._fn is not None:
+                self._vals = self._fn()
+                self._fn = None
+        return self._vals[k]
+
+
+def fused_window_pregated2(blob, meta, *, Nb, Lq, ntiles, K, LP, sat_bits,
+                           dst=None, out_width=None):
+    """Counterpart of ``_fused_window_pregated2`` (and, with sat_bits=32 and
+    no compaction, of ``_fused_window_pregated2_wide``): the uploaded
+    ``blob`` u8 = seqpack [Nb*Lq] | shp [Nb] | isc [W/8] | isg [W/8] and
+    ``meta`` i32 = srtk | cntk through one fused kernel launch. Returns
+    ``(out [2, out_width], overflow [1])``."""
+    G = ntiles * K
+    nbits = ntiles * T // 8
+    a = Nb * Lq
+    return pileup2_tiles(
+        blob[:a].view(Nb, Lq), blob[a : a + Nb],
+        meta[:G], meta[G : 2 * G],
+        blob[a + Nb : a + Nb + nbits], blob[a + Nb + nbits : a + Nb + 2 * nbits],
+        ntiles=ntiles, K=K, LP=LP, sat_bits=sat_bits, dst=dst,
+        out_width=out_width)
+
+
+def _fold_hard(out, hard, W_k, wpad1, min_phred):
+    """Add the host oracle's counters of a window's hard rows (indels, '='
+    bases) to its [W, 4] output."""
+    if hard is None:
+        return
+    hseq, hqual, hrp, hst, ref_p, woff = hard
+    hc = sem.pileup_channels(hseq, hqual, hrp, hst, np.ones(hseq.shape, bool),
+                             ref_p, woff, 0, wpad1, min_phred)
+    out[:, :2] += hc[:W_k, :2].astype(np.uint32)
+
+
+def _hard_rows(w, ref_p, woff):
+    hrows = np.nonzero(w["hard"])[0]
+    if not len(hrows):
+        return None
+    return (w["seq"][hrows].copy(), w["qual"][hrows].copy(),
+            (w["refpos"][hrows] - w["win_start"]).astype(np.int64),
+            w["st"][hrows].copy(), ref_p, woff)
+
+
+class DeviceBackend:
+    """The port's compute backend for ``run_extract`` on one device.
+
+    ``device`` is explicit: "cuda" (or "cuda:N") runs the kernel, "cpu" runs
+    its plain PyTorch version (for the CPU tests). Per-run state: the
+    readback width (u8 until the first overflow, then u16 for the rest of
+    the run; shared by the drain threads, so under a lock) and the count of
+    windows routed to the host engine."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("a CUDA device was asked for, but "
+                                   "torch.cuda.is_available() is false")
+            self.stream = torch.cuda.Stream(self.device)
+        elif self.device.type == "cpu":
+            self.stream = None
+        else:
+            raise ValueError(f"unsupported device {self.device}")
+        self.host_routed = 0
+        self._sat_bits = 8
+        self._lock = threading.Lock()
+        self._reasons_said: set = set()
+
+    # ------------------------------------------------------------ contract
+
+    def __call__(self, cfg, batch, strand_arr, keep, ref_window, win_offset,
+                 win_start, win_end, rstrand=None):
+        return self.dispatch(cfg, batch, strand_arr, keep, ref_window,
+                             win_offset, win_start, win_end, rstrand).get()
+
+    def dispatch(self, cfg, batch, strand_arr, keep, ref_window, win_offset,
+                 win_start, win_end, rstrand=None):
+        """One window (``dispatch_window_counters_fast``, v3 branch)."""
+        W = win_end - win_start
+        kidx = np.nonzero(keep)[0]
+        if batch.n == 0 or len(kidx) == 0:
+            return WindowHandle(value=np.zeros((W, 4), dtype=np.uint32))
+        reason = self._route_reason(cfg, batch.seq.shape[1], rstrand)
+        if reason is not None:
+            self._note_routed(reason)
+            return WindowHandle(value=compute_window_counters_host(
+                cfg, batch, strand_arr, keep, ref_window, win_offset,
+                win_start, win_end, rstrand))
+        W_fixed = hp.round_up(max(int(cfg.chunkSize) + 16, W), T)
+        seq, qual, refpos, pos, _lq, st, hard = hp.prep_v3_rows(
+            cfg, batch, strand_arr, keep, kidx)
+        fin = self._dispatch_v3(cfg, seq, qual, refpos, pos, st, hard,
+                                ref_window, win_start,
+                                win_offset - win_start, W_fixed)
+        return WindowHandle(fn=lambda: fin()[:W])
+
+    def dispatch_group(self, cfg, items, pad_to=0):
+        """K windows in one launch (``dispatch_window_group``), or one
+        dispatch per window when the group preconditions fail. ``pad_to``
+        only decides whether a lone window rides the group program: the
+        port compiles nothing per shape, so no empty slots are added."""
+        if len(items) > 1 or pad_to > len(items):
+            hs = self._dispatch_window_group(cfg, items)
+            if hs is not None:
+                return hs
+        return [self.dispatch(cfg, *it) for it in items]
+
+    # ------------------------------------------------------------- routing
+
+    @staticmethod
+    def _route_reason(cfg, L, rstrand):
+        if cfg.minOppositeDepth > 0:
+            return "--minOppositeDepth > 0 needs the 4-channel pileup"
+        if rstrand is not None:
+            return "a BED strand column (--keepStrand)"
+        if L > 256:
+            return "reads longer than 256 bp"
+        if os.environ.get("MDTPU_FUSED", "v3") == "v2":
+            return "MDTPU_FUSED=v2"
+        if os.environ.get("MDTPU_NO_PALLAS") == "1":
+            return "MDTPU_NO_PALLAS=1"
+        return None
+
+    def _note_routed(self, reason):
+        with self._lock:
+            self.host_routed += 1
+            first = reason not in self._reasons_said
+            self._reasons_said.add(reason)
+        if first:
+            sys.stderr.write("methyldackel_tpu_torch: windows routed to the "
+                             f"host engine: {reason}\n")
+
+    # -------------------------------------------------------------- device
+
+    def _stream_ctx(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _upload(self, arr):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.stream is None:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _launch(self, seqpack, shp, isc, isg, srtk, cntk, *, ntiles, K, LP,
+                cand=None):
+        """Upload, launch and start the readback of one window program.
+        Returns fetch() -> uint32 [2, ntiles*T] counters (meth, unmeth),
+        dense; with ``cand`` the device returns only those columns and
+        fetch scatters them back (other columns stay 0)."""
+        Nb, Lq = seqpack.shape
+        W = ntiles * T
+        geom = dict(Nb=Nb, Lq=Lq, ntiles=ntiles, K=K, LP=LP)
+        blob_np = np.concatenate([seqpack.reshape(-1), shp, isc, isg])
+        meta_np = np.concatenate([srtk, cntk]).astype(np.int32)
+        with self._lock:
+            sat_bits = self._sat_bits
+        with self._stream_ctx():
+            blob = self._upload(blob_np)
+            meta = self._upload(meta_np)
+            dst = out_width = None
+            if cand is not None:
+                idx = self._upload(cand.astype(np.int32))
+                dst = torch.full((W,), -1, dtype=torch.int32,
+                                 device=self.device)
+                dst[idx.long()] = torch.arange(len(cand), dtype=torch.int32,
+                                               device=self.device)
+                out_width = len(cand)
+            out, overflow = fused_window_pregated2(
+                blob, meta, sat_bits=sat_bits, dst=dst, out_width=out_width,
+                **geom)
+            out_b = out.view(torch.uint8)
+            if self.stream is None:
+                out_h, ovf_h, done = out_b, overflow, None
+            else:
+                out_h = torch.empty(out_b.shape, dtype=torch.uint8,
+                                    pin_memory=True)
+                ovf_h = torch.empty(1, dtype=torch.int32, pin_memory=True)
+                out_h.copy_(out_b, non_blocking=True)
+                ovf_h.copy_(overflow, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+        # every input stays referenced by fetch until its readback is done
+        inputs = (blob, meta, dst, out, overflow)
+        np_dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32}[sat_bits]
+
+        def fetch():
+            if done is not None:
+                done.synchronize()
+            if int(ovf_h[0]):
+                # a count did not fit: widen the readback for the rest of
+                # the run and refetch this window dense in u32
+                with self._lock:
+                    self._sat_bits = max(self._sat_bits, 16)
+                with self._stream_ctx():
+                    wide, _ = fused_window_pregated2(inputs[0], inputs[1],
+                                                     sat_bits=32, **geom)
+                    wide_h = wide.view(torch.uint8).cpu()
+                return wide_h.numpy().view(np.uint32)
+            sel = out_h.numpy().view(np_dtype).astype(np.uint32)
+            if cand is None:
+                return sel
+            cm = np.zeros((2, W), np.uint32)
+            cm[:, cand] = sel
+            return cm
+
+        return fetch
+
+    # ------------------------------------------------------- single window
+
+    def _dispatch_v3(self, cfg, seq, qual, refpos, pos, st, hard, ref_window,
+                     win_start, woff_rel, W_fixed):
+        """NCH=2 branch of ``_fused_dispatch_v3``: returns finalize() ->
+        uint32 [W_fixed, 4] (channels 2-3 zero: emit reads only 0-1)."""
+        rows = np.nonzero(~hard)[0]
+        f_pos = pos[rows] - win_start
+        n = len(rows)
+        L = seq.shape[1]
+        Lq = (L + 3) // 4
+        L4 = 4 * Lq
+        LP = hp.round_up(max(L4, 128), 128)
+        K = (T + LP) // 128
+        wpad = hp.round_up(W_fixed, T)
+        ntiles = wpad // T
+        min_phred = int(cfg.minPhred)
+
+        aligned = f_pos - (f_pos % 128)
+        order = np.argsort(aligned, kind="stable")
+        srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
+        seqpack = np.zeros((n, Lq), np.uint8)
+        pos_p = np.zeros(n, np.int32)
+        parity_p = np.zeros(n, np.uint8)
+        if n:
+            hp.pack2_rows(seq, qual, rows[order], pos, st, Lq, win_start,
+                          min_phred, out=(seqpack, pos_p, parity_p))
+
+        if not -512 <= woff_rel <= 512:
+            raise ValueError(f"window/reference offset {woff_rel} out of range")
+        ref_p = hp.ref_padded(ref_window, wpad + 256)
+        isc, isg = hp.ref_bits(ref_p, woff_rel, wpad)
+        cand = np.nonzero(hp.ctx_mask_np(
+            hp.unpack_mask(isc, wpad), hp.unpack_mask(isg, wpad),
+            hp.ctx_code(cfg), wpad))[0].astype(np.int64)
+        hard_k = _hard_rows({"hard": hard, "seq": seq, "qual": qual,
+                             "refpos": refpos, "st": st,
+                             "win_start": win_start}, ref_p, woff_rel)
+        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p), isc,
+                             isg, srtk, cntk, ntiles=ntiles, K=K, LP=LP,
+                             cand=cand)
+
+        def finalize():
+            cm = fetch()
+            out = np.zeros((W_fixed, 4), np.uint32)
+            out[:, :2] = cm[:, :W_fixed].T
+            _fold_hard(out, hard_k, W_fixed, wpad, min_phred)
+            return out
+
+        return finalize
+
+    # ------------------------------------------------------------- groups
+
+    def _dispatch_window_group(self, cfg, items):
+        """``dispatch_window_group``: a list of per-window handles, or None
+        when the group preconditions fail (NCH=4, a BED strand column,
+        L > 256 or mixed across windows, a window wider than the slot,
+        MDTPU_FUSED=v2, MDTPU_NO_PALLAS=1)."""
+        if cfg.minOppositeDepth > 0 or not items:
+            return None
+        if os.environ.get("MDTPU_FUSED", "v3") == "v2" \
+                or os.environ.get("MDTPU_NO_PALLAS") == "1":
+            return None
+        Ls = set()
+        for it in items:
+            if it[7] is not None:  # rstrand
+                return None
+            if it[0].n:
+                Ls.add(it[0].seq.shape[1])
+        if (Ls and max(Ls) > 256) or len(Ls) > 1:
+            return None
+        W_fixed = hp.round_up(int(cfg.chunkSize) + 16, T)
+        wins = []
+        for (batch, strand_arr, keep, ref_window, win_offset, win_start,
+             win_end, _rs) in items:
+            W = win_end - win_start
+            if hp.round_up(max(int(cfg.chunkSize) + 16, W), T) > W_fixed:
+                return None  # window wider than the group slot
+            kidx = np.nonzero(keep)[0]
+            if batch.n == 0 or len(kidx) == 0:
+                wins.append({"empty": True, "W": W})
+                continue
+            seq, qual, refpos, pos, _lq, st, hard = hp.prep_v3_rows(
+                cfg, batch, strand_arr, keep, kidx)
+            wins.append({"empty": False, "W": W, "seq": seq, "qual": qual,
+                         "refpos": refpos, "pos": pos, "st": st,
+                         "hard": hard, "ref_window": ref_window,
+                         "win_start": win_start,
+                         "woff_rel": win_offset - win_start})
+        fin = self._dispatch_group_multi(cfg, wins, W_fixed)
+        g = _GroupResult(fin)
+        return [WindowHandle(fn=functools.partial(g.get, k))
+                for k in range(len(items))]
+
+    def _dispatch_group_multi(self, cfg, wins, W_fixed):
+        """``_fused_dispatch_v3_multi``: candidate space first, window
+        space when that is ineligible or MDTPU_CANDSPACE=0. Returns
+        finalize() -> list of uint32 [W_k, 4]."""
+        if not any(not w["empty"] for w in wins):
+            Ws = [w["W"] for w in wins]
+            return lambda: [np.zeros((W, 4), np.uint32) for W in Ws]
+        if os.environ.get("MDTPU_CANDSPACE", "1") != "0":
+            fin = self._dispatch_group_cand(cfg, wins, W_fixed)
+            if fin is not None:
+                return fin
+        return self._dispatch_group_window(cfg, wins, W_fixed)
+
+    def _dispatch_group_cand(self, cfg, wins, W_fixed):
+        """``_fused_dispatch_v3_multi_cand``: reads re-coordinated from
+        window positions to candidate slots (the ctx-enabled positions, the
+        only ones emit reads), so the group's coordinate space shrinks to
+        Kw * CSLOT. Returns None, without touching ``wins``, when a window
+        holds more candidates than the CSLOT ladder or a read covers more
+        than 128 slots."""
+        live = [w for w in wins if not w["empty"]]
+        L = live[0]["seq"].shape[1]
+        wpad1 = hp.round_up(W_fixed, T)
+        ctx = hp.ctx_code(cfg)
+        min_phred = int(cfg.minPhred)
+        Kw = len(wins)
+
+        # phase A: per-window candidate geometry (no mutation yet)
+        geo = [None] * Kw
+        maxC = 0
+        for k, w in enumerate(wins):
+            if w["empty"]:
+                continue
+            woff = int(w["woff_rel"])
+            if not -512 <= woff <= 512:
+                return None
+            ref_p = hp.ref_padded(w["ref_window"], wpad1 + 256)
+            rb = hp.ref_bits(ref_p, woff, wpad1)
+            cand, csum = hp.candidates(rb[0], rb[1], wpad1, ctx)
+            geo[k] = {"ref_p": ref_p, "rb": rb, "cand": cand, "csum": csum,
+                      "woff": woff}
+            maxC = max(maxC, len(cand))
+        CSLOT = hp.ncand_bucket(maxC, wpad1)
+        if CSLOT == 0:
+            return None
+
+        # phase B: per-window slot-space row geometry + Lc bucket
+        per = [None] * Kw
+        n_tot = 0
+        maxcnt = 0
+        for k, w in enumerate(wins):
+            if w["empty"]:
+                continue
+            csum = geo[k]["csum"]
+            rows = np.nonzero(~w["hard"])[0]
+            f_pos = (w["pos"][rows] - w["win_start"]).astype(np.int64)
+            s0 = csum[np.clip(f_pos, 0, wpad1)].astype(np.int64)
+            cnt = csum[np.clip(f_pos + L, 0, wpad1)].astype(np.int64) - s0
+            if len(cnt):
+                maxcnt = max(maxcnt, int(cnt.max()))
+            aligned = s0 - (s0 % 128)
+            if len(aligned) < 2 or bool((aligned[1:] >= aligned[:-1]).all()):
+                # coordinate-sorted input: the stable sort is the identity
+                order = slice(None)
+            else:
+                order = np.argsort(aligned, kind="stable")
+            per[k] = {"src": rows[order], "f_pos": f_pos[order],
+                      "s0": s0[order], "cnt": cnt[order],
+                      "aligned": aligned[order], "row0": n_tot}
+            n_tot += len(rows)
+        Lc4 = hp.lc_bucket(maxcnt)
+        if Lc4 == 0:
+            return None
+
+        # group geometry in candidate-slot coordinates
+        Lq = Lc4 // 4
+        LP = hp.round_up(max(Lc4, 128), 128)
+        K = (T + LP) // 128
+        P = hp.round_up(CSLOT, T)  # slot pitch
+        W_tot = Kw * P
+        ntiles = W_tot // T
+        al_all = np.concatenate(
+            [p["aligned"] + k * P for k, p in enumerate(per) if p is not None]
+            + [np.zeros(0, np.int64)])
+        srtk, cntk = hp.group_tables(al_all, ntiles, K, LP)
+
+        # phase C: pack rows into candidate space + slot bitmaps (mutating
+        # from here on: no fallback past this point)
+        seqpack = np.zeros((n_tot, Lq), np.uint8)
+        pos_p = np.zeros(n_tot, np.int32)
+        parity_p = np.zeros(n_tot, np.uint8)
+        isc_all = np.zeros(W_tot // 8, np.uint8)
+        isg_all = np.zeros(W_tot // 8, np.uint8)
+        hard = [None] * Kw
+        cands = [None] * Kw
+        Ws = [w["W"] for w in wins]
+        for k, (w, p) in enumerate(zip(wins, per)):
+            if p is None:
+                continue
+            g = geo[k]
+            cand = g["cand"]
+            cands[k] = cand
+            n_k = len(p["src"])
+            r0 = p["row0"]
+            if n_k:
+                hp.pack2_cand_rows(
+                    w["seq"], w["qual"], p["src"], w["pos"], w["st"], Lq,
+                    w["win_start"], min_phred, cand, g["csum"], wpad1, k * P,
+                    p["f_pos"], p["s0"], p["cnt"],
+                    out=(seqpack[r0 : r0 + n_k], pos_p[r0 : r0 + n_k],
+                         parity_p[r0 : r0 + n_k]))
+            if len(cand):
+                # slot j of window k is a C-site or a G-site
+                rb0, rb1 = g["rb"]
+                sh7 = (7 - (cand & 7)).astype(np.int64)
+                sC = np.zeros(P, bool)
+                sG = np.zeros(P, bool)
+                sC[: len(cand)] = ((rb0[cand >> 3] >> sh7) & 1) != 0
+                sG[: len(cand)] = ((rb1[cand >> 3] >> sh7) & 1) != 0
+                isc_all[k * P // 8 : (k + 1) * P // 8] = np.packbits(sC)
+                isg_all[k * P // 8 : (k + 1) * P // 8] = np.packbits(sG)
+            hard[k] = _hard_rows(w, g["ref_p"], g["woff"])
+            w.clear()  # finalize must not pin the window's big arrays
+        del wins, live, per, geo
+
+        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p),
+                             isc_all, isg_all, srtk, cntk, ntiles=ntiles,
+                             K=K, LP=LP)
+
+        def finalize():
+            cm = fetch()
+            outs = []
+            for k in range(Kw):
+                out = np.zeros((Ws[k], 4), np.uint32)
+                cand = cands[k]
+                if cand is not None and len(cand):
+                    m = cand < Ws[k]
+                    out[cand[m], :2] = cm[:, k * P : k * P + len(cand)].T[m]
+                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred)
+                outs.append(out)
+            return outs
+
+        return finalize
+
+    def _dispatch_group_window(self, cfg, wins, W_fixed):
+        """Window-space group: K windows in guard-separated slots of
+        S = wpad + 512 columns, the readback compacted to the ctx-enabled
+        columns."""
+        live = [w for w in wins if not w["empty"]]
+        L = live[0]["seq"].shape[1]
+        Lq = (L + 3) // 4
+        L4 = 4 * Lq
+        LP = hp.round_up(max(L4, 128), 128)
+        K = (T + LP) // 128
+        wpad1 = hp.round_up(W_fixed, T)
+        # guard tile between slots: reads near a slot's right edge write up
+        # to L-1 columns past it, where no candidate bit is set
+        S = wpad1 + 512
+        Kw = len(wins)
+        W_tot = Kw * S
+        ntiles = W_tot // T
+        nbits1 = wpad1 // 8
+        min_phred = int(cfg.minPhred)
+
+        per = []
+        n_tot = 0
+        for w in wins:
+            if w["empty"]:
+                per.append(None)
+                continue
+            rows = np.nonzero(~w["hard"])[0]
+            f_pos = (w["pos"][rows] - w["win_start"]).astype(np.int64)
+            aligned = f_pos - (f_pos % 128)
+            order = np.argsort(aligned, kind="stable")
+            per.append({"src": rows[order], "aligned": aligned[order],
+                        "row0": n_tot})
+            n_tot += len(rows)
+        al_all = np.concatenate(
+            [p["aligned"] + k * S for k, p in enumerate(per) if p is not None]
+            + [np.zeros(0, np.int64)])
+        srtk, cntk = hp.group_tables(al_all, ntiles, K, LP)
+
+        seqpack = np.zeros((n_tot, Lq), np.uint8)
+        pos_p = np.zeros(n_tot, np.int32)
+        parity_p = np.zeros(n_tot, np.uint8)
+        isc_all = np.zeros(W_tot // 8, np.uint8)
+        isg_all = np.zeros(W_tot // 8, np.uint8)
+        hard = [None] * Kw
+        Ws = [w["W"] for w in wins]
+        for k, (w, p) in enumerate(zip(wins, per)):
+            if p is None:
+                continue
+            n_k = len(p["src"])
+            r0 = p["row0"]
+            if n_k:
+                hp.pack2_rows(w["seq"], w["qual"], p["src"], w["pos"],
+                              w["st"], Lq, w["win_start"], min_phred,
+                              out=(seqpack[r0 : r0 + n_k],
+                                   pos_p[r0 : r0 + n_k],
+                                   parity_p[r0 : r0 + n_k]))
+                pos_p[r0 : r0 + n_k] += k * S  # slot offset (multiple of 512)
+            woff = int(w["woff_rel"])
+            if not -512 <= woff <= 512:
+                raise ValueError(f"window/reference offset {woff} out of range")
+            ref_p = hp.ref_padded(w["ref_window"], wpad1 + 256)
+            rb = hp.ref_bits(ref_p, woff, wpad1)
+            isc_all[k * S // 8 : k * S // 8 + nbits1] = rb[0]
+            isg_all[k * S // 8 : k * S // 8 + nbits1] = rb[1]
+            hard[k] = _hard_rows(w, ref_p, woff)
+            w.clear()
+        del wins, live, per
+
+        # per-slot context mask (period S, data extent wpad1)
+        cand = np.nonzero(hp.ctx_mask_np(
+            hp.unpack_mask(isc_all, W_tot), hp.unpack_mask(isg_all, W_tot),
+            hp.ctx_code(cfg), (S, wpad1)))[0].astype(np.int64)
+        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p),
+                             isc_all, isg_all, srtk, cntk, ntiles=ntiles,
+                             K=K, LP=LP, cand=cand)
+
+        def finalize():
+            cm = fetch()
+            outs = []
+            for k in range(Kw):
+                out = np.zeros((Ws[k], 4), np.uint32)
+                out[:, :2] = cm[:, k * S : k * S + Ws[k]].T
+                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred)
+                outs.append(out)
+            return outs
+
+        return finalize
+
+
+def make_device_backend(cfg, device="cuda") -> DeviceBackend:
+    """The backend ``run_extract`` drives, on ``device`` ("cuda" or
+    "cpu"; no silent move from one to the other)."""
+    return DeviceBackend(device)

@@ -1,0 +1,202 @@
+"""The port's CLI (methyldackel_tpu_torch.cli) with its backend on the CPU
+(the kernel's plain version) must write byte-identical files to the
+reference CLI's exact host engine (MDTPU_ENGINE=host), and must run
+without jax."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+from methyldackel_tpu import cli as ref_cli
+from methyldackel_tpu.io.bai import build_bai
+from methyldackel_tpu.io.bam import BamFile
+from methyldackel_tpu.utils.simulate import write_synthetic_input
+from methyldackel_tpu_torch import cli as port_cli
+from methyldackel_tpu_torch.parallel import select_backend
+from util_bam import write_bam
+from test_synthetic_e2e import write_fa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _scenario_multi_contig(d):
+    write_fa(d / "g.fa", [("chrA", "ACGTACGTAC"), ("chrB", "TTCGTTTTTT")])
+    write_bam(d / "r.bam", [("chrA", 10), ("chrB", 10)], [
+        dict(qname="a", flag=0, tid=0, pos=0, seq="ACGTACGTAC", mtid=-1,
+             mpos=-1),
+        dict(qname="b", flag=0, tid=1, pos=0, seq="TTCGTTTTTT", mtid=-1,
+             mpos=-1),
+    ])
+    return []
+
+
+def _scenario_ob_strand(d):
+    write_fa(d / "g.fa", [("c", "ACGTTTCGTT")])
+    write_bam(d / "r.bam", [("c", 10)], [
+        dict(qname="r", flag=0x10, tid=0, pos=0, seq="ACGTTTCATT", mtid=-1,
+             mpos=-1),
+    ])
+    return []
+
+
+def _scenario_indel(d):
+    write_fa(d / "g.fa", [("c", "AACGTTTTTTCGTTTT")])
+    write_bam(d / "r.bam", [("c", 16)], [
+        dict(qname="r", flag=0, tid=0, pos=0, cigar="4M6D4M", seq="AACGCGTT",
+             mtid=-1, mpos=-1),
+        dict(qname="s", flag=0, tid=0, pos=2, seq="CGTTTTTTCG", mtid=-1,
+             mpos=-1),
+    ])
+    return []
+
+
+def _scenario_chg_chh(d):
+    write_fa(d / "g.fa", [("c", "CAGCTTA")])
+    write_bam(d / "r.bam", [("c", 7)], [
+        dict(qname="r", flag=0, tid=0, pos=0, seq="CAGTTTA", mtid=-1,
+             mpos=-1),
+    ])
+    return ["--CHG", "--CHH"]
+
+
+def _scenario_methylkit(d):
+    write_fa(d / "g.fa", [("c", "TTCGTTTTTT")])
+    write_bam(d / "r.bam", [("c", 10)], [
+        dict(qname=q, flag=0, tid=0, pos=0, seq=s, mtid=-1, mpos=-1)
+        for q, s in (("a", "TTCGTTTTTT"), ("b", "TTTGTTTTTT"),
+                     ("d", "TTTGTTTTTT"))
+    ])
+    return ["--methylKit"]
+
+
+def _run_both(monkeypatch, d, args, port_env=None):
+    """Reference host engine in d/host, the port (CPU backend, every window
+    on the device lane) in d/port, same -o prefix. Returns the port's
+    backend."""
+    (d / "host").mkdir()
+    (d / "port").mkdir()
+    monkeypatch.setenv("MDTPU_ENGINE", "host")
+    monkeypatch.chdir(d / "host")
+    assert ref_cli.main(["extract", *args]) == 0
+    monkeypatch.setenv("MDTPU_STEAL", "0")
+    for k, v in (port_env or {}).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.chdir(d / "port")
+    rc, backend = port_cli.extract(args, device="cpu")
+    assert rc == 0
+    host_files = sorted(os.listdir(d / "host"))
+    assert host_files == sorted(os.listdir(d / "port")) and host_files
+    for name in host_files:
+        assert (d / "port" / name).read_bytes() == \
+            (d / "host" / name).read_bytes(), name
+    return backend
+
+
+@pytest.mark.parametrize("scenario", [
+    _scenario_multi_contig, _scenario_ob_strand, _scenario_indel,
+    _scenario_chg_chh, _scenario_methylkit])
+def test_port_cli_matches_host_engine(tmp_path, monkeypatch, scenario):
+    extra = scenario(tmp_path)
+    backend = _run_both(monkeypatch, tmp_path,
+                        [*extra, "../g.fa", "../r.bam", "-o", "o"])
+    assert backend.host_routed == 0
+
+
+@pytest.fixture(scope="module")
+def synthetic_input(tmp_path_factory):
+    d = tmp_path_factory.mktemp("syn")
+    fa, bam = write_synthetic_input(str(d), 3000, 100, 30000, seed=3)
+    build_bai(BamFile(bam), bam + ".bai")
+    return fa, bam
+
+
+@pytest.mark.parametrize("env,extra", [
+    ({}, []),
+    ({"MDTPU_BATCH_WINDOWS": "1"}, []),
+    ({"MDTPU_CANDSPACE": "0"}, []),
+    ({"MDTPU_STEAL": "1"}, ["-@", "2"]),
+    ({}, ["--CHG", "--CHH", "--mergeContext"]),
+    ({}, ["--cytosine_report"]),
+])
+def test_port_cli_synthetic_windows(tmp_path, monkeypatch, synthetic_input,
+                                    env, extra):
+    """Ten windows of a simulated WGBS run through every group route."""
+    fa, bam = synthetic_input
+    backend = _run_both(monkeypatch, tmp_path,
+                        ["--chunkSize", "3000", *extra, fa, bam, "-o", "o"],
+                        port_env=env)
+    assert backend.host_routed == 0
+
+
+def test_min_opposite_depth_is_routed_and_counted(tmp_path, monkeypatch,
+                                                  capsys, synthetic_input):
+    fa, bam = synthetic_input
+    backend = _run_both(monkeypatch, tmp_path,
+                        ["--chunkSize", "3000", "--minOppositeDepth", "1",
+                         fa, bam, "-o", "o"])
+    assert backend.host_routed > 0
+    err = capsys.readouterr().err
+    assert err.count("routed to the host engine: --minOppositeDepth") == 1
+
+
+def test_port_extract_imports_no_jax(tmp_path):
+    """In a fresh process (conftest imports jax into this one)."""
+    fa, bam = write_synthetic_input(str(tmp_path), 300, 100, 6000, seed=1)
+    code = (
+        "import sys\n"
+        "from methyldackel_tpu_torch.cli import extract\n"
+        f"rc, be = extract(['--chunkSize', '2000', {fa!r}, {bam!r}, "
+        "'-o', 'o'], device='cpu')\n"
+        "assert rc == 0 and be.host_routed == 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.endswith(('parallel.device', 'pileup_pallas'))"
+        " and m.startswith('methyldackel_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('no-jax-ok')\n")
+    env = dict(os.environ, MDTPU_STEAL="0",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("MDTPU_TRACE_DIR", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "no-jax-ok" in res.stdout
+    assert (tmp_path / "o_CpG.bedGraph").stat().st_size > 100
+
+
+def test_select_backend_modes(monkeypatch):
+    import torch
+
+    from methyldackel_tpu.config import Config
+
+    cfg = Config()
+    monkeypatch.setenv("MDTPU_ENGINE", "host")
+    assert select_backend(cfg) is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("MDTPU_ENGINE", "auto")
+    assert select_backend(cfg) is None
+    monkeypatch.setenv("MDTPU_ENGINE", "cuda")
+    with pytest.raises(RuntimeError):
+        select_backend(cfg)
+    monkeypatch.setenv("MDTPU_ENGINE", "jax")
+    with pytest.raises(ValueError):
+        select_backend(cfg)
+
+
+def test_merge_context_and_unported_commands(tmp_path, monkeypatch, capsys):
+    """mergeContext runs the reference's host code; mbias and perRead say
+    they are not ported and fail."""
+    _scenario_indel(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MDTPU_ENGINE", "host")
+    assert port_cli.main(["extract", "g.fa", "r.bam", "-o", "o"]) == 0
+    assert port_cli.main(["mergeContext", "-o", "m.bedGraph", "g.fa",
+                          "o_CpG.bedGraph"]) == 0
+    assert ref_cli.main(["mergeContext", "-o", "r.bedGraph", "g.fa",
+                         "o_CpG.bedGraph"]) == 0
+    merged = (tmp_path / "m.bedGraph").read_bytes()
+    assert merged == (tmp_path / "r.bedGraph").read_bytes()
+    assert merged.count(b"\n") > 1
+    for cmd in ("mbias", "perRead"):
+        assert port_cli.main([cmd, "g.fa", "r.bam"]) != 0
+    assert "not ported" in capsys.readouterr().err
