@@ -6,22 +6,34 @@
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
 
-1. Device: the card's name and power limit; the kernels are built from
-   ``methyldackel_tpu_torch/csrc`` with nvcc (build time printed).
-2. Kernel against its plain PyTorch version on the card, at the shapes of
-   the default extract's two group programs (candidate space and window
-   space, 4 windows of 1 Mb at 30x-like depth): bit-equal (integer counts,
-   tolerance 0) in u8, u16 and u32 outputs, plus an input built to overflow
-   u8. Times are CUDA-event medians of 10 launches after warm-up.
-3. The main path end to end: ``extract`` through the port
-   (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every window goes to the card) on
-   a synthetic 2M-read WGBS input; its CpG bedGraph must be byte-identical
-   to the reference CLI's exact host engine (MDTPU_ENGINE=host), the kernel
-   must have launched and no window may have been routed to the host.
+1. Device: the card's name and power limit; the three kernel sources
+   (``pileup2.cu``, ``pileup4.cu``, ``arbitrate.cu``) are built from
+   ``methyldackel_tpu_torch/csrc`` with nvcc, one process each, all started
+   together (build times printed).
+2. Each kernel against its plain PyTorch version on the card, bit-equal
+   (integer counts and qual bytes, tolerance 0), at the shapes of the main
+   paths: ``pileup2`` at the default extract's two group programs (4
+   windows of 1 Mb at 30x-like depth) in u8, u16 and u32 plus an input built
+   to overflow u8; ``pileup4`` in both layouts at one 1 Mb window of 240k
+   reads of 150 bp (the --minOppositeDepth and v2 single-window programs),
+   NCH 2 and 4, dense and compacted, all widths, plus an overflow input;
+   ``arbitrate`` at 120k pairs of 150 bp with block shifts 0-2 and
+   ineligible pairs. Times are CUDA-event medians after warm-up, plain and
+   kernel in turns.
+3. The main paths end to end on a synthetic 2M-read WGBS input, through
+   ``extract`` of the port (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every
+   window goes to the card): the default extract, ``--minOppositeDepth 5
+   --maxVariantFrac 0.1`` (variant exclusion, the 4-channel program) and
+   ``MDTPU_FUSED=v2`` (arbitration on the card). Each CpG bedGraph must be
+   byte-identical to the reference CLI's exact host engine
+   (MDTPU_ENGINE=host), each path's kernels must have launched, no window
+   may have been routed to the host, and the variant run must exclude
+   positions. Port and host engine run in turns in this process for reads/s.
 4. Side routes on a small input with indel and '=' reads: single-window
-   dispatch, the window-space group, and CHG+CHH output; and a ~900x deep
-   input whose counts overflow the u8 readback (u32 refetch, then u16).
-   Each byte-identical to the host engine.
+   dispatch, the window-space group, CHG+CHH, the 4-channel program, v2,
+   v2 with --minOppositeDepth; and a ~900x deep input whose counts overflow
+   the u8 readback (u32 refetch, then u16), default and 4-channel. Each
+   byte-identical to the host engine.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the card
 line and a JSON line with each kernel's launches, error and times. Nothing
@@ -67,6 +79,21 @@ def cuda_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
+
+
+def turns_ms(kernel, plain, reps=REPS):
+    """Median CUDA-event times (ms) of kernel() and plain(), warmed up and
+    taken in turns: plain, kernel, kernel, plain."""
+    import torch
+
+    for _ in range(2):
+        kernel()
+        plain()
+    torch.cuda.synchronize()
+    p = cuda_ms(plain, reps // 2)
+    k = cuda_ms(kernel, reps)
+    p += cuda_ms(plain, reps - reps // 2)
+    return float(np.median(k)), float(np.median(p))
 
 
 # ------------------------------------------------------- phase 2: kernel
@@ -135,15 +162,8 @@ def kernel_vs_plain(name, inp, compact):
         if d != 0 or int(got_ovf.item()) != int(want_ovf.item()):
             raise AssertionError(f"{name} u{sat}: kernel != plain version")
     kw8 = dict(geom, sat_bits=8, **extra)
-    for _ in range(2):  # warm-up
-        pk.pileup2_tiles(*args, **kw8)
-        pk.pileup2_tiles_reference(*args, **kw8)
-    torch.cuda.synchronize()
-    plain = cuda_ms(lambda: pk.pileup2_tiles_reference(*args, **kw8), REPS // 2)
-    kern = cuda_ms(lambda: pk.pileup2_tiles(*args, **kw8), REPS)
-    plain += cuda_ms(lambda: pk.pileup2_tiles_reference(*args, **kw8),
-                     REPS - REPS // 2)
-    k_ms, p_ms = float(np.median(kern)), float(np.median(plain))
+    k_ms, p_ms = turns_ms(lambda: pk.pileup2_tiles(*args, **kw8),
+                          lambda: pk.pileup2_tiles_reference(*args, **kw8))
     print(f"  {name}: rows {len(inp['shp'])} tiles {inp['ntiles']} K "
           f"{inp['K']} Lq {inp['seqpack'].shape[1]}: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms (median of {REPS}; {card_line()})",
@@ -183,6 +203,185 @@ def overflow_case(rng):
         if not same or int(ovf.item()) != want_flag \
                 or int(wovf.item()) != want_flag:
             raise AssertionError(f"overflow case u{sat} failed")
+
+
+def window_inputs(rng, *, n, L, wpad, qual_mode):
+    """One 1 Mb window of the single-window programs: n position-sorted
+    rows of L codes (A/C/G/T/N, some 0 = gated or absent) starting anywhere
+    in [-L, wpad), nibble-packed (nq) or one per byte with quals 0-41
+    (qual), random parities, reference bitmaps of a random 42% GC genome,
+    and the compaction map of its CpG candidates. Group tables come from
+    the dispatch's own host code."""
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    LP = hp.round_up(max(4 * ((L + 3) // 4), 128), 128)
+    K = (T + LP) // 128
+    ntiles = wpad // T
+    f_pos = np.sort(rng.integers(-L + 1, wpad, n))
+    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    alphabet = np.array([1, 2, 4, 8, 15, 0], np.uint8)
+    p = [0.29, 0.2, 0.2, 0.29, 0.01, 0.01]
+    codes = alphabet[rng.choice(6, (n, L), p=p)]
+    qual = rng.integers(0, 42, (n, L), dtype=np.uint8)
+    if not qual_mode:
+        codes = np.where(qual >= 5, codes, 0).astype(np.uint8)
+        if L % 2:
+            codes = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1)
+        codes = np.ascontiguousarray(codes[:, 0::2] | (codes[:, 1::2] << 4))
+    shp = hp.shp_bytes(f_pos.astype(np.int32),
+                       rng.integers(0, 2, n).astype(np.uint8))
+    base = rng.choice(4, wpad, p=[0.29, 0.21, 0.21, 0.29])
+    cb, gb = base == 1, base == 2
+    cand = np.nonzero(hp.ctx_mask_np(cb, gb, 1, wpad))[0]
+    dst = np.full(wpad, -1, np.int32)
+    dst[cand] = np.arange(len(cand), dtype=np.int32)
+    return dict(codes=codes, qual=qual if qual_mode else None, shp=shp,
+                srtk=srtk, cntk=cntk, isc=np.packbits(cb),
+                isg=np.packbits(gb), dst=dst, ncand=len(cand),
+                ntiles=ntiles, K=K, LP=LP)
+
+
+def pileup4_vs_plain(name, inp, timed_nch):
+    """Bit-equality in NCH 2 and 4, all three widths, dense and compacted;
+    then times of the compacted u8 program at ``timed_nch`` (the main
+    path's readback). Returns (max_abs_err, kernel ms, plain ms)."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import pileup4 as p4
+
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(inp[k]).to(dev)
+            for k in ("codes", "shp", "srtk", "cntk", "isc", "isg")]
+    mode = {}
+    if inp["qual"] is not None:
+        mode = dict(qual=torch.from_numpy(inp["qual"]).to(dev), min_phred=5)
+    geom = dict(ntiles=inp["ntiles"], K=inp["K"], LP=inp["LP"], **mode)
+    compact = dict(dst=torch.from_numpy(inp["dst"]).to(dev),
+                   out_width=inp["ncand"])
+    err = 0
+    for nch in (2, 4):
+        for sat in (8, 16, 32):
+            for extra in ({}, compact):
+                kw = dict(geom, nch=nch, sat_bits=sat, **extra)
+                got, got_ovf = p4.pileup4_tiles(*args, **kw)
+                want, want_ovf = p4.pileup4_tiles_reference(*args, **kw)
+                torch.cuda.synchronize()
+                np_dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32}[sat]
+                g = got.view(torch.uint8).cpu().numpy().view(np_dtype)
+                w = want.view(torch.uint8).cpu().numpy().view(np_dtype)
+                d = int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max())
+                err = max(err, d)
+                if d != 0 or int(got_ovf.item()) != int(want_ovf.item()):
+                    raise AssertionError(f"{name} nch{nch} u{sat}: kernel != "
+                                         "plain version")
+                if sat == 32 and extra:
+                    print(f"  {name} nch{nch}: out {tuple(got.shape)} per "
+                          f"channel sums {g.astype(np.int64).sum(axis=1)}; "
+                          f"u8/u16/u32, dense and compacted: max_abs_err 0",
+                          flush=True)
+    kw8 = dict(geom, nch=timed_nch, sat_bits=8, **compact)
+    k_ms, p_ms = turns_ms(lambda: p4.pileup4_tiles(*args, **kw8),
+                          lambda: p4.pileup4_tiles_reference(*args, **kw8))
+    print(f"  {name}: rows {len(inp['shp'])} tiles {inp['ntiles']} K "
+          f"{inp['K']} row bytes {inp['codes'].shape[1]}, nch {timed_nch} "
+          f"compacted u8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median "
+          f"of {REPS}; {card_line()})", flush=True)
+    return err, k_ms, p_ms
+
+
+def pileup4_overflow_case():
+    """400 rows stacked on one span over an all-C stretch, both layouts:
+    u8 must flag, u16 and u32 must not; kernel == plain in every width."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import pileup4 as p4
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    n, L, LP, ntiles = 400, 150, 256, 4
+    K = (T + LP) // 128
+    f_pos = np.full(n, 700, np.int64)
+    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    parity = np.ones(n, np.uint8)
+    parity[::3] = 0
+    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
+    isc = np.full(ntiles * T // 8, 0xFF, np.uint8)
+    isg = np.zeros_like(isc)
+    dev = torch.device("cuda")
+    for qual_mode in (False, True):
+        codes = np.full((n, L), 2, np.uint8) if qual_mode \
+            else np.full((n, L // 2), 0x22, np.uint8)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (codes, shp, srtk, cntk, isc, isg)]
+        mode = dict(qual=torch.full((n, L), 30, dtype=torch.uint8,
+                                    device=dev), min_phred=5) \
+            if qual_mode else {}
+        for sat, want_flag in ((8, 1), (16, 0), (32, 0)):
+            kw = dict(ntiles=ntiles, K=K, LP=LP, nch=4, sat_bits=sat, **mode)
+            got, ovf = p4.pileup4_tiles(*args, **kw)
+            want, wovf = p4.pileup4_tiles_reference(*args, **kw)
+            torch.cuda.synchronize()
+            same = np.array_equal(got.view(torch.uint8).cpu().numpy(),
+                                  want.view(torch.uint8).cpu().numpy())
+            print(f"  pileup4 {'qual' if qual_mode else 'nq'} overflow input "
+                  f"u{sat}: flag {int(ovf.item())} (plain "
+                  f"{int(wovf.item())}), equal {same}", flush=True)
+            if not same or int(ovf.item()) != want_flag \
+                    or int(wovf.item()) != want_flag:
+                raise AssertionError(f"pileup4 overflow case u{sat} failed")
+
+
+def arbitrate_vs_plain(rng, *, P, L, span):
+    """P mate pairs over ``span`` columns, position-sorted as the v2
+    program sorts them, mates 0-329 apart (block shifts 0-2 and beyond),
+    one pair in nine on different strand parities, quals 0-255. Kernel and
+    plain version rewrite copies of the same quals. Returns (max_abs_err,
+    kernel ms, plain ms)."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import arbitrate as ar
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    n = 2 * P
+    f_pos = np.empty(n, np.int64)
+    f_pos[0::2] = rng.integers(0, span, P)
+    f_pos[1::2] = f_pos[0::2] + rng.integers(0, 330, P)
+    aligned = f_pos - f_pos % 128
+    order = np.argsort(aligned, kind="stable")
+    frame = np.empty(n, np.int64)
+    frame[order] = np.arange(n)
+    st = rng.integers(1, 3, n)
+    st[1::2] = st[0::2]
+    st[1::18] ^= 3
+    pa, pb, code = hp.v2_pair_tables(aligned[order], st[order], frame[0::2],
+                                     frame[1::2])
+    seq = np.array([1, 2, 4, 8, 15], np.uint8)[
+        rng.choice(5, (n, L), p=[0.29, 0.2, 0.2, 0.29, 0.02])]
+    qual = rng.integers(0, 256, (n, L), dtype=np.uint8)
+    shp = hp.shp_bytes(f_pos[order].astype(np.int32),
+                       (st[order] & 1).astype(np.uint8))
+    dev = torch.device("cuda")
+    s_t, shp_t, pa_t, pb_t, code_t = [
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (seq, shp, pa, pb, code)]
+    q0 = torch.from_numpy(qual).to(dev)
+    got, want = q0.clone(), q0.clone()
+    ar.arbitrate(s_t, got, shp_t, pa_t, pb_t, code_t)
+    ar.arbitrate_reference(s_t, want, shp_t, pa_t, pb_t, code_t)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    changed = int((got != q0).sum())
+    counts = np.bincount(code, minlength=4)
+    print(f"  arbitrate: {P} pairs x {L} (codes 0/1/2/3: {counts.tolist()}), "
+          f"{changed} quals rewritten, max_abs_err {err}", flush=True)
+    if err != 0 or changed == 0:
+        raise AssertionError("arbitrate: kernel != plain version")
+    q = q0.clone()  # in place: both rewrite the same bytes each call
+    k_ms, p_ms = turns_ms(
+        lambda: ar.arbitrate(s_t, q, shp_t, pa_t, pb_t, code_t),
+        lambda: ar.arbitrate_reference(s_t, q, shp_t, pa_t, pb_t, code_t))
+    print(f"  arbitrate: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median "
+          f"of {REPS}; {card_line()})", flush=True)
+    return err, k_ms, p_ms
 
 
 # ---------------------------------------------------- phases 3-4: the CLI
@@ -282,6 +481,23 @@ def side_input(dirpath, seed=7):
     write_bam(os.path.join(dirpath, "r.bam"), [("chrS", glen)], recs)
 
 
+def build_all(build, sources):
+    """nvcc for every kernel source at once, one process each; then load
+    them. Returns {source: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(src):
+        t0 = time.perf_counter()
+        build.build(src)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as ex:
+        secs = list(ex.map(one, sources))
+    for src in sources:
+        build.load(src)
+    return dict(zip(sources, secs))
+
+
 def main() -> int:
     import torch
 
@@ -291,10 +507,23 @@ def main() -> int:
         return 1
     # the port and its host modules; none of them may pull in jax
     from methyldackel_tpu.io import native
+    from methyldackel_tpu_torch.ops import arbitrate as ar
     from methyldackel_tpu_torch.ops import build
     from methyldackel_tpu_torch.ops import pileup as pk
+    from methyldackel_tpu_torch.ops import pileup4 as p4
+
+    def reset_counts():
+        pk.LAUNCHES = 0
+        p4.LAUNCHES["nq"] = 0
+        p4.LAUNCHES["qual"] = 0
+        ar.LAUNCHES = 0
+
+    def read_counts():
+        return {"pileup2": pk.LAUNCHES, "pileup4_nq": p4.LAUNCHES["nq"],
+                "pileup4_qual": p4.LAUNCHES["qual"], "arbitrate": ar.LAUNCHES}
 
     # ---- phase 1: device
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}; torch.cuda.get_device_name: "
           f"{torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -303,25 +532,25 @@ def main() -> int:
           f"native host library: {native.available()}", flush=True)
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.perf_counter()
-    build.load(pk.SOURCE)
-    print(f"[1] built {pk.SOURCE} for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s "
-          f"({build.library_path(pk.SOURCE)})", flush=True)
+    secs = build_all(build, [pk.SOURCE, p4.SOURCE, ar.SOURCE])
+    print(f"[1] built {', '.join(f'{k} in {v:.2f} s' for k, v in secs.items())}"
+          f" for sm_90a, in parallel: {time.perf_counter() - t0:.2f} s "
+          f"({build.BUILD_DIR})", flush=True)
 
-    # ---- phase 2: kernel against its plain version
+    # ---- phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
     reads_per_window = 240_000
     wpad1 = 1_000_448  # round_up(chunkSize 1e6 + 16, 512)
     cslot = 187_648    # the CSLOT ladder's 3/16 bucket of wpad1
     P = 187_904
-    print("[2] candidate-space group program (Kw=4, P=187904, Lc4=64)",
-          flush=True)
+    print("[2] pileup2: candidate-space group program (Kw=4, P=187904, "
+          "Lc4=64)", flush=True)
     cand_in = group_inputs(rng, Kw=4, pitch=P, span=cslot, lo=0,
                            n_per=reads_per_window, Lq=16, LP=128,
                            ctx_slot=(P, cslot))
     e1, k1, p1 = kernel_vs_plain("candidate space", cand_in, compact=False)
     del cand_in
-    print("[2] window-space group program (Kw=4, S=1000960, L=150)",
+    print("[2] pileup2: window-space group program (Kw=4, S=1000960, L=150)",
           flush=True)
     S = wpad1 + 512
     win_in = group_inputs(rng, Kw=4, pitch=S, span=wpad1, lo=-149,
@@ -330,11 +559,36 @@ def main() -> int:
     e2, k2, p2 = kernel_vs_plain("window space", win_in, compact=True)
     del win_in
     overflow_case(rng)
+    print("[2] pileup4 nq: the --minOppositeDepth single-window program "
+          "(1 Mb, 240k reads of 150 bp)", flush=True)
+    inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
+                        qual_mode=False)
+    e_nq, k_nq, p_nq = pileup4_vs_plain("pileup4 nq", inp, timed_nch=4)
+    print("[2] pileup4 qual: the v2 single-window program (1 Mb, 240k reads "
+          "of 150 bp)", flush=True)
+    inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
+                        qual_mode=True)
+    e_q, k_q, p_q = pileup4_vs_plain("pileup4 qual", inp, timed_nch=2)
+    del inp
+    pileup4_overflow_case()
+    print("[2] arbitrate: the v2 program's pairs (1 Mb, 120k pairs of "
+          "150 bp)", flush=True)
+    e_ar, k_ar, p_ar = arbitrate_vs_plain(rng, P=reads_per_window // 2,
+                                          L=150, span=wpad1)
     torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path end to end
+    # ---- phase 3: the main paths end to end
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    paths = (
+        ("default extract", [], {}, ("pileup2",)),
+        ("--minOppositeDepth 5 --maxVariantFrac 0.1",
+         ["--minOppositeDepth", "5", "--maxVariantFrac", "0.1"], {},
+         ("pileup4_nq",)),
+        ("MDTPU_FUSED=v2", [], {"MDTPU_FUSED": "v2"},
+         ("pileup4_qual", "arbitrate")),
+    )
+    launches = {}
     try:
         from methyldackel_tpu.io.bai import build_bai
         from methyldackel_tpu.io.bam import BamFile
@@ -345,55 +599,81 @@ def main() -> int:
         build_bai(BamFile(bam), bam + ".bai")
         print(f"[3] wrote 2,000,000 reads of 150 bp over 8 Mb in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for d in ("port", "host", "hostin"):
-            os.makedirs(os.path.join(WORK, d))
-        args = [fa, bam, "-o", "out"]
-        cuda_env = {"MDTPU_ENGINE": "cuda", "MDTPU_STEAL": "0"}
-        host_env = {"MDTPU_ENGINE": "host"}
-        pk.LAUNCHES = 0
-        t_cuda = [run_port(args, os.path.join(WORK, "port"), cuda_env)]
-        launches = pk.LAUNCHES
-        backend = t_cuda[0][1]
-        # the exact host engine in this process too (same run_extract,
-        # no backend), in turns with the port: cuda, host, host, cuda
-        t_host = [run_port(args, os.path.join(WORK, "hostin"), host_env)
-                  for _ in range(2)]
-        t_cuda.append(run_port(args, os.path.join(WORK, "port"), cuda_env))
-        dt_ref = run_host(args, os.path.join(WORK, "host"))
-        same_outputs(os.path.join(WORK, "port"), os.path.join(WORK, "host"),
-                     ["out_CpG.bedGraph"])
-        same_outputs(os.path.join(WORK, "hostin"),
-                     os.path.join(WORK, "host"), ["out_CpG.bedGraph"])
-        rate = [2e6 / t for t, _ in t_cuda]
-        hrate = [2e6 / t for t, _ in t_host]
-        print(f"[3] default extract, 2,000,000 reads of 150 bp: port cuda "
-              f"{rate[0]:,.0f} and {rate[1]:,.0f} reads/s "
-              f"({t_cuda[0][0]:.2f} s, {t_cuda[1][0]:.2f} s; kernel launches "
-              f"{launches}, host-routed windows {backend.host_routed}); host "
-              f"engine in process {hrate[0]:,.0f} and {hrate[1]:,.0f} reads/s "
-              f"({t_host[0][0]:.2f} s, {t_host[1][0]:.2f} s); reference CLI "
-              f"process (MDTPU_ENGINE=host) {dt_ref:.2f} s = "
-              f"{2e6 / dt_ref:,.0f} reads/s; out_CpG.bedGraph byte-identical "
-              f"({card})", flush=True)
-        if launches <= 0 or backend.host_routed != 0:
-            raise AssertionError("the main path did not run on the card")
+        calls = {}
+        for k, (name, extra, env, kernels) in enumerate(paths):
+            dirs = [os.path.join(WORK, f"{d}{k}")
+                    for d in ("port", "host", "hostin")]
+            for d in dirs:
+                os.makedirs(d)
+            args = [*extra, fa, bam, "-o", "out"]
+            cuda_env = {"MDTPU_ENGINE": "cuda", "MDTPU_STEAL": "0", **env}
+            host_env = {"MDTPU_ENGINE": "host"}
+            reset_counts()
+            t_cuda = [run_port(args, dirs[0], cuda_env)]
+            counts = read_counts()
+            backend = t_cuda[0][1]
+            # the exact host engine in this process too (same run_extract,
+            # no backend), in turns with the port: cuda, host, host, cuda
+            t_host = [run_port(args, dirs[2], host_env) for _ in range(2)]
+            t_cuda.append(run_port(args, dirs[0], cuda_env))
+            dt_ref = run_host(args, dirs[1])
+            same_outputs(dirs[0], dirs[1], ["out_CpG.bedGraph"])
+            same_outputs(dirs[2], dirs[1], ["out_CpG.bedGraph"])
+            calls[name] = open(os.path.join(dirs[0], "out_CpG.bedGraph"),
+                               "rb").read().count(b"\n") - 1
+            rate = [2e6 / t for t, _ in t_cuda]
+            hrate = [2e6 / t for t, _ in t_host]
+            print(f"[3] {name}, 2,000,000 reads of 150 bp: port cuda "
+                  f"{rate[0]:,.0f} and {rate[1]:,.0f} reads/s "
+                  f"({t_cuda[0][0]:.2f} s, {t_cuda[1][0]:.2f} s; kernel "
+                  f"launches {counts}, host-routed windows "
+                  f"{backend.host_routed}); host engine in process "
+                  f"{hrate[0]:,.0f} and {hrate[1]:,.0f} reads/s "
+                  f"({t_host[0][0]:.2f} s, {t_host[1][0]:.2f} s); reference "
+                  f"CLI process (MDTPU_ENGINE=host) {dt_ref:.2f} s = "
+                  f"{2e6 / dt_ref:,.0f} reads/s; out_CpG.bedGraph "
+                  f"byte-identical, {calls[name]} CpG lines ({card})",
+                  flush=True)
+            if backend.host_routed != 0 \
+                    or any(counts[kn] <= 0 for kn in kernels):
+                raise AssertionError(f"{name} did not run on the card")
+            for kn in kernels:
+                launches[kn] = counts[kn]
+        excluded = calls[paths[0][0]] - calls[paths[1][0]]
+        print(f"[3] variant exclusion: {excluded} CpG lines of "
+              f"{calls[paths[0][0]]} excluded against the default run",
+              flush=True)
+        if excluded <= 0:
+            raise AssertionError("--minOppositeDepth excluded nothing")
 
         # ---- phase 4: side routes
         side = os.path.join(WORK, "side")
         os.makedirs(side)
         side_input(side)
         # ~900x coverage: counts pass 255, so the u8 readback overflows, the
-        # drain thread refetches the group in u32 and the run reads u16
+        # drain thread refetches the window or group in u32 and the run
+        # reads u16
         deep = os.path.join(WORK, "deep")
         os.makedirs(deep)
         write_synthetic_input(deep, 4000, 100, 1000, seed=5)
+        opp = ["--minOppositeDepth", "2"]
+        v2 = {"MDTPU_FUSED": "v2"}
         routes = (
-            ("single-window", side, {"MDTPU_BATCH_WINDOWS": "1"}, []),
-            ("window-space group", side, {"MDTPU_CANDSPACE": "0"}, []),
-            ("CHG+CHH", side, {}, ["--CHG", "--CHH"]),
-            ("deep coverage", deep, {}, []),
+            ("single-window", side, {"MDTPU_BATCH_WINDOWS": "1"}, [],
+             ("pileup2",)),
+            ("window-space group", side, {"MDTPU_CANDSPACE": "0"}, [],
+             ("pileup2",)),
+            ("CHG+CHH", side, {}, ["--CHG", "--CHH"], ("pileup2",)),
+            ("4-channel", side, {}, opp, ("pileup4_nq",)),
+            ("v2", side, v2, [], ("pileup4_qual", "arbitrate")),
+            ("v2 4-channel", side, v2, opp, ("pileup4_qual", "arbitrate")),
+            ("deep coverage", deep, {}, [], ("pileup2",)),
+            # at ~900x the simulator's 1% errors put a variant at every
+            # CpG, so the default fraction 0 would exclude all of them
+            ("deep coverage 4-channel", deep, {},
+             [*opp, "--maxVariantFrac", "0.1"], ("pileup4_nq",)),
         )
-        for name, src, env, extra in routes:
+        for name, src, env, extra, kernels in routes:
             d_port = os.path.join(src, name.replace(" ", "_") + "_port")
             d_host = os.path.join(src, name.replace(" ", "_") + "_host")
             os.makedirs(d_port)
@@ -402,29 +682,32 @@ def main() -> int:
                       else ["../sim.fa", "../sim.bam"])
             a = ["--chunkSize", "5000" if src == side else "300", *extra,
                  *inputs, "-o", "o"]
-            before = pk.LAUNCHES
+            reset_counts()
             _, be = run_port(a, d_port, {"MDTPU_ENGINE": "cuda",
                                          "MDTPU_STEAL": "0", **env})
+            counts = read_counts()
             run_host(a, d_host)
             names = ["o_CpG.bedGraph"] + (
-                ["o_CHG.bedGraph", "o_CHH.bedGraph"] if extra else [])
+                ["o_CHG.bedGraph", "o_CHH.bedGraph"] if "--CHG" in extra
+                else [])
             same_outputs(d_port, d_host, names)
-            n = pk.LAUNCHES - before
             print(f"[4] {name}: byte-identical to the host engine "
-                  f"({', '.join(names)}; kernel launches {n}, host-routed "
-                  f"{be.host_routed}, readback width u{be._sat_bits})",
-                  flush=True)
-            if n <= 0 or be.host_routed != 0:
+                  f"({', '.join(names)}; kernel launches {counts}, "
+                  f"host-routed {be.host_routed}, readback width "
+                  f"u{be._sat_bits})", flush=True)
+            if be.host_routed != 0 or any(counts[k] <= 0 for k in kernels):
                 raise AssertionError(f"side route {name} missed the card")
             if src == deep and be._sat_bits != 16:
-                raise AssertionError("deep coverage did not overflow u8")
+                raise AssertionError(f"{name} did not overflow u8")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print(f"[5] pileup2_tiles ms (kernel / plain): candidate space "
-          f"{k1:.4f} / {p1:.4f}, window space {k2:.4f} / {p2:.4f} "
-          f"(the JSON line reports the candidate-space program, the main "
-          f"path's)", flush=True)
+    print(f"[5] kernel ms (kernel / plain): pileup2 candidate space "
+          f"{k1:.4f} / {p1:.4f}, window space {k2:.4f} / {p2:.4f}; pileup4 "
+          f"nq {k_nq:.4f} / {p_nq:.4f}; pileup4 qual {k_q:.4f} / {p_q:.4f}; "
+          f"arbitrate {k_ar:.4f} / {p_ar:.4f} (the JSON line reports "
+          f"pileup2's candidate-space program, the default path's); whole "
+          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m in ("methyldackel_tpu.parallel.device",
@@ -432,16 +715,27 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"jax code was imported: {leaked}")
 
+    csrc = "methyldackel_tpu_torch/csrc/"
+    kernels = [
+        ("pileup2_tiles", "pileup2.cu", "pileup_pallas.py:279", "pileup2",
+         max(e1, e2), k1, p1),
+        ("pileup4_tiles_nq", "pileup4.cu", "pileup_pallas.py:171",
+         "pileup4_nq", e_nq, k_nq, p_nq),
+        ("pileup4_tiles_qual", "pileup4.cu", "pileup_pallas.py:66",
+         "pileup4_qual", e_q, k_q, p_q),
+        ("arbitrate", "arbitrate.cu", "arbitrate_pallas.py:28", "arbitrate",
+         e_ar, k_ar, p_ar),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "pileup2_tiles",
+        "name": name,
         "route": "cuda",
-        "source": "methyldackel_tpu_torch/csrc/pileup2.cu",
-        "replaces": "methyldackel_tpu/ops/pileup_pallas.py:279",
-        "launches": launches,
-        "max_abs_err": max(e1, e2),
-        "ms": k1,
-        "plain_ms": p1,
-    }]}))
+        "source": csrc + source,
+        "replaces": "methyldackel_tpu/ops/" + replaces,
+        "launches": launches[key],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    } for name, source, replaces, key, err, ms, plain_ms in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

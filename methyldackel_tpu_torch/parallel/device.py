@@ -1,24 +1,33 @@
-"""Window programs of the default extract on the card.
+"""Window programs of ``extract`` on the card.
 
-Port of the 2-bit (NCH=2) path of ``methyldackel_tpu/parallel/device.py``:
-single-window dispatch (``_fused_dispatch_v3``), the K-window group in
-candidate space (``_fused_dispatch_v3_multi_cand``) and in window space
-(``_fused_dispatch_v3_multi``), and ``make_device_backend`` with the contract
+Port of the window programs of ``methyldackel_tpu/parallel/device.py``:
+
+- single-window dispatch (``_fused_dispatch_v3``): NCH=2, the 2-bit program
+  (``ops.pileup.pileup2_tiles``), or with ``--minOppositeDepth > 0`` NCH=4,
+  the pre-gated nibble-packed 12-count program (``ops.pileup4``, nq mode);
+- the K-window group of the default extract in candidate space
+  (``_fused_dispatch_v3_multi_cand``) and in window space
+  (``_fused_dispatch_v3_multi``);
+- the v2 window program (``MDTPU_FUSED=v2``, ``_fused_dispatch``): mate
+  arbitration on the card (``ops.arbitrate``), then the qual-gated 12-count
+  program (``ops.pileup4``, qual mode), for NCH=2 and NCH=4;
+
+and ``make_device_backend`` with the contract
 ``methyldackel_tpu.engine.extract.run_extract`` drives: the backend is
 callable, ``.dispatch(...)`` returns a handle with ``.get()``, and
 ``.dispatch_group(cfg, items, pad_to)`` returns a list of handles.
 
-The host work (row classification, arbitration, 2-bit packing, group
-tables, bitmaps) is ``host_prep``; the device work is one launch of
-``ops.pileup.pileup2_tiles`` per dispatch. The numpy arrays go to the device
-in one place, ``DeviceBackend._launch``: the upload, the launch and the copy
-back into pinned host memory run on the backend's own CUDA stream, and an
-event marks the copy done. ``.get()`` waits for it on the engine's drain
-threads.
+The host work (row classification, pairing, arbitration for v3, packing,
+group tables, bitmaps) is ``host_prep``; hard rows (indels, '=' bases, and
+both mates of a pair holding one) are folded in on the host at finalize.
+The numpy arrays go to the device in one place, ``DeviceBackend._launch``:
+the upload, the launches and the copy back into pinned host memory run on
+the backend's own CUDA stream, and an event marks the copy done. ``.get()``
+waits for it on the engine's drain threads.
 
-Windows this slice does not serve on the card (``--minOppositeDepth > 0``,
-a BED strand column, reads longer than 256 bp, ``MDTPU_FUSED=v2``,
-``MDTPU_NO_PALLAS=1``) go to the exact host engine through a counted route:
+Windows the port does not serve on the card yet (a BED strand column,
+reads longer than 256 bp, ``MDTPU_NO_PALLAS=1``: the JAX package's dense
+fallback) go to the exact host engine through a counted route:
 ``DeviceBackend.host_routed`` counts them and the first one of each reason
 writes a line to stderr.
 """
@@ -36,7 +45,9 @@ import torch
 from methyldackel_tpu.engine.extract import compute_window_counters_host
 from methyldackel_tpu.ops import semantics as sem
 
+from ..ops.arbitrate import arbitrate
 from ..ops.pileup import T, pileup2_tiles
+from ..ops.pileup4 import pileup4_tiles
 from . import host_prep as hp
 
 
@@ -94,15 +105,60 @@ def fused_window_pregated2(blob, meta, *, Nb, Lq, ntiles, K, LP, sat_bits,
         out_width=out_width)
 
 
-def _fold_hard(out, hard, W_k, wpad1, min_phred):
+def fused_window_pregated(blob, meta, *, Nb, Lh, ntiles, K, LP, sat_bits,
+                          dst=None, out_width=None):
+    """Counterpart of ``_fused_window_pregated`` (and, with sat_bits=32 and
+    no compaction, of ``_fused_window_pregated_wide``): the uploaded
+    ``blob`` u8 = seqpack [Nb*Lh] | shp [Nb] | isc [W/8] | isg [W/8] and
+    ``meta`` i32 = srtk | cntk through one fused kernel launch. Returns
+    ``(out [4, out_width], overflow [1])``."""
+    G = ntiles * K
+    nbits = ntiles * T // 8
+    a = Nb * Lh
+    return pileup4_tiles(
+        blob[:a].view(Nb, Lh), blob[a : a + Nb], meta[:G], meta[G : 2 * G],
+        blob[a + Nb : a + Nb + nbits], blob[a + Nb + nbits : a + Nb + 2 * nbits],
+        ntiles=ntiles, K=K, LP=LP, nch=4, sat_bits=sat_bits, dst=dst,
+        out_width=out_width)
+
+
+def fused_fast_window(blob, meta, *, Nb, L, P, ntiles, K, LP, nch, min_phred,
+                      sat_bits, dst=None, out_width=None, arbitrated=False):
+    """Counterpart of ``_fused_fast_window`` + the ``_fused_window_packed``
+    readback (``_fused_window_wide`` with sat_bits=32, no compaction and
+    ``arbitrated``): ``blob`` u8 = seq [Nb*L] | qual [Nb*L] | shp [Nb] |
+    code [P] | isc | isg and ``meta`` i32 = srtk | cntk | pa [P] | pb [P].
+    Unless the quals in ``blob`` are ``arbitrated`` already, the pairs'
+    overlaps are arbitrated in place first (one launch), then the
+    qual-gated pileup runs (one launch). Returns ``(out [nch, out_width],
+    overflow [1])``."""
+    G = ntiles * K
+    nbits = ntiles * T // 8
+    a = Nb * L
+    seq = blob[:a].view(Nb, L)
+    qual = blob[a : 2 * a].view(Nb, L)
+    shp = blob[2 * a : 2 * a + Nb]
+    b0 = 2 * a + Nb + P
+    if not arbitrated:
+        arbitrate(seq, qual, shp, meta[2 * G : 2 * G + P],
+                  meta[2 * G + P : 2 * G + 2 * P], blob[2 * a + Nb : b0])
+    return pileup4_tiles(
+        seq, shp, meta[:G], meta[G : 2 * G], blob[b0 : b0 + nbits],
+        blob[b0 + nbits : b0 + 2 * nbits], ntiles=ntiles, K=K, LP=LP, nch=nch,
+        sat_bits=sat_bits, dst=dst, out_width=out_width, qual=qual,
+        min_phred=min_phred)
+
+
+def _fold_hard(out, hard, W_k, wpad1, min_phred, nch):
     """Add the host oracle's counters of a window's hard rows (indels, '='
-    bases) to its [W, 4] output."""
+    bases, both mates of a pair holding one) to channels [0, nch) of its
+    [W, 4] output; with NCH=2 channels 2-3 stay zero, as on the card."""
     if hard is None:
         return
     hseq, hqual, hrp, hst, ref_p, woff = hard
     hc = sem.pileup_channels(hseq, hqual, hrp, hst, np.ones(hseq.shape, bool),
                              ref_p, woff, 0, wpad1, min_phred)
-    out[:, :2] += hc[:W_k, :2].astype(np.uint32)
+    out[:, :nch] += hc[:W_k, :nch].astype(np.uint32)
 
 
 def _hard_rows(w, ref_p, woff):
@@ -112,6 +168,29 @@ def _hard_rows(w, ref_p, woff):
     return (w["seq"][hrows].copy(), w["qual"][hrows].copy(),
             (w["refpos"][hrows] - w["win_start"]).astype(np.int64),
             w["st"][hrows].copy(), ref_p, woff)
+
+
+def _hard_rows_v2(seq, qual, refpos, st, hard, a_np, b_np, pair_simple,
+                  win_start, ref_p, woff):
+    """The v2 program's hard rows with their pairs arbitrated on the host:
+    ``semantics.arbitrate_overlaps`` on copies of the rows, over the pairs
+    holding a hard mate (``hsel = ~pair_simple``, device.py:2691), in place
+    of the JAX package's ``arbitrate_device`` on the device."""
+    hrows = np.nonzero(hard)[0]
+    if not len(hrows):
+        return None
+    hseq = seq[hrows].copy()
+    hqual = qual[hrows].copy()
+    hrp_abs = refpos[hrows].copy()
+    hst = st[hrows].copy()
+    if len(a_np):
+        hremap = np.full(len(hard), -1, np.int64)
+        hremap[hrows] = np.arange(len(hrows))
+        hsel = ~np.asarray(pair_simple, bool)
+        sem.arbitrate_overlaps(hseq, hqual, hrp_abs, hst, hremap[a_np[hsel]],
+                               hremap[b_np[hsel]])
+    return (hseq, hqual, (hrp_abs - win_start).astype(np.int64), hst, ref_p,
+            woff)
 
 
 class DeviceBackend:
@@ -160,11 +239,18 @@ class DeviceBackend:
                 cfg, batch, strand_arr, keep, ref_window, win_offset,
                 win_start, win_end, rstrand))
         W_fixed = hp.round_up(max(int(cfg.chunkSize) + 16, W), T)
-        seq, qual, refpos, pos, _lq, st, hard = hp.prep_v3_rows(
-            cfg, batch, strand_arr, keep, kidx)
-        fin = self._dispatch_v3(cfg, seq, qual, refpos, pos, st, hard,
-                                ref_window, win_start,
-                                win_offset - win_start, W_fixed)
+        if os.environ.get("MDTPU_FUSED", "v3") == "v2":
+            seq, qual, refpos, pos, _lq, st, hard, a, b, ps = \
+                hp.prep_v2_rows(cfg, batch, strand_arr, keep, kidx)
+            fin = self._dispatch_v2(cfg, seq, qual, refpos, pos, st, hard, a,
+                                    b, ps, ref_window, win_start,
+                                    win_offset - win_start, W_fixed)
+        else:
+            seq, qual, refpos, pos, _lq, st, hard = hp.prep_v3_rows(
+                cfg, batch, strand_arr, keep, kidx)
+            fin = self._dispatch_v3(cfg, seq, qual, refpos, pos, st, hard,
+                                    ref_window, win_start,
+                                    win_offset - win_start, W_fixed)
         return WindowHandle(fn=lambda: fin()[:W])
 
     def dispatch_group(self, cfg, items, pad_to=0):
@@ -182,14 +268,12 @@ class DeviceBackend:
 
     @staticmethod
     def _route_reason(cfg, L, rstrand):
-        if cfg.minOppositeDepth > 0:
-            return "--minOppositeDepth > 0 needs the 4-channel pileup"
+        """Why a window takes the host engine (the JAX package's dense
+        fallback, not ported yet), or None."""
         if rstrand is not None:
             return "a BED strand column (--keepStrand)"
         if L > 256:
             return "reads longer than 256 bp"
-        if os.environ.get("MDTPU_FUSED", "v3") == "v2":
-            return "MDTPU_FUSED=v2"
         if os.environ.get("MDTPU_NO_PALLAS") == "1":
             return "MDTPU_NO_PALLAS=1"
         return None
@@ -216,17 +300,25 @@ class DeviceBackend:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _launch(self, seqpack, shp, isc, isg, srtk, cntk, *, ntiles, K, LP,
-                cand=None):
+    def _launch(self, blob_parts, meta_parts, program, *, nch, W, cand=None,
+                wide=None):
         """Upload, launch and start the readback of one window program.
-        Returns fetch() -> uint32 [2, ntiles*T] counters (meth, unmeth),
-        dense; with ``cand`` the device returns only those columns and
-        fetch scatters them back (other columns stay 0)."""
-        Nb, Lq = seqpack.shape
-        W = ntiles * T
-        geom = dict(Nb=Nb, Lq=Lq, ntiles=ntiles, K=K, LP=LP)
-        blob_np = np.concatenate([seqpack.reshape(-1), shp, isc, isg])
-        meta_np = np.concatenate([srtk, cntk]).astype(np.int32)
+
+        ``blob_parts`` (u8) and ``meta_parts`` (i32) go up as one array
+        each; ``program(blob, meta, sat_bits=, dst=, out_width=)`` launches
+        the kernels and returns ``(out [nch, ...], overflow)``, and
+        ``wide(blob, meta)`` the dense u32 refetch after an overflow
+        (default: ``program`` at sat_bits=32). Returns fetch() -> uint32
+        [nch, W] counters, dense; with ``cand`` the device returns only
+        those columns and fetch scatters them back (other columns stay
+        0)."""
+        blob_np = np.concatenate([np.asarray(p, np.uint8).reshape(-1)
+                                  for p in blob_parts])
+        meta_np = np.concatenate([np.asarray(p, np.int32).reshape(-1)
+                                  for p in meta_parts])
+        if wide is None:
+            def wide(b, m):
+                return program(b, m, sat_bits=32)[0]
         with self._lock:
             sat_bits = self._sat_bits
         with self._stream_ctx():
@@ -240,9 +332,8 @@ class DeviceBackend:
                 dst[idx.long()] = torch.arange(len(cand), dtype=torch.int32,
                                                device=self.device)
                 out_width = len(cand)
-            out, overflow = fused_window_pregated2(
-                blob, meta, sat_bits=sat_bits, dst=dst, out_width=out_width,
-                **geom)
+            out, overflow = program(blob, meta, sat_bits=sat_bits, dst=dst,
+                                    out_width=out_width)
             out_b = out.view(torch.uint8)
             if self.stream is None:
                 out_h, ovf_h, done = out_b, overflow, None
@@ -267,14 +358,13 @@ class DeviceBackend:
                 with self._lock:
                     self._sat_bits = max(self._sat_bits, 16)
                 with self._stream_ctx():
-                    wide, _ = fused_window_pregated2(inputs[0], inputs[1],
-                                                     sat_bits=32, **geom)
-                    wide_h = wide.view(torch.uint8).cpu()
+                    wide_h = wide(inputs[0], inputs[1]).view(
+                        torch.uint8).cpu()
                 return wide_h.numpy().view(np.uint32)
             sel = out_h.numpy().view(np_dtype).astype(np.uint32)
             if cand is None:
                 return sel
-            cm = np.zeros((2, W), np.uint32)
+            cm = np.zeros((nch, W), np.uint32)
             cm[:, cand] = sel
             return cm
 
@@ -282,16 +372,46 @@ class DeviceBackend:
 
     # ------------------------------------------------------- single window
 
+    @staticmethod
+    def _window_reference(cfg, ref_window, woff_rel, wpad):
+        """(ref_p, isc, isg, cand) of one window: the padded reference, its
+        frame-shifted C/G bitmaps and the ctx-enabled columns, the only
+        ones emit reads (``_ctx_mask_np``; with NCH=4 the four channels are
+        exact there, the packed-readback contract)."""
+        if not -512 <= woff_rel <= 512:
+            raise ValueError(f"window/reference offset {woff_rel} out of range")
+        ref_p = hp.ref_padded(ref_window, wpad + 256)
+        isc, isg = hp.ref_bits(ref_p, woff_rel, wpad)
+        cand = np.nonzero(hp.ctx_mask_np(
+            hp.unpack_mask(isc, wpad), hp.unpack_mask(isg, wpad),
+            hp.ctx_code(cfg), wpad))[0].astype(np.int64)
+        return ref_p, isc, isg, cand
+
+    @staticmethod
+    def _finalize_single(fetch, hard_k, W_fixed, wpad, min_phred, nch):
+        def finalize():
+            cm = fetch()
+            out = np.zeros((W_fixed, 4), np.uint32)
+            out[:, :nch] = cm[:, :W_fixed].T
+            _fold_hard(out, hard_k, W_fixed, wpad, min_phred, nch)
+            return out
+
+        return finalize
+
     def _dispatch_v3(self, cfg, seq, qual, refpos, pos, st, hard, ref_window,
                      win_start, woff_rel, W_fixed):
-        """NCH=2 branch of ``_fused_dispatch_v3``: returns finalize() ->
-        uint32 [W_fixed, 4] (channels 2-3 zero: emit reads only 0-1)."""
+        """``_fused_dispatch_v3`` on host-arbitrated rows: NCH=2, the 2-bit
+        program, or with --minOppositeDepth > 0 NCH=4, the nibble-packed
+        12-count program. Returns finalize() -> uint32 [W_fixed, 4]
+        (channels 2-3 zero when NCH=2: emit reads only 0-1)."""
+        nch = 4 if cfg.minOppositeDepth > 0 else 2
         rows = np.nonzero(~hard)[0]
         f_pos = pos[rows] - win_start
         n = len(rows)
         L = seq.shape[1]
         Lq = (L + 3) // 4
         L4 = 4 * Lq
+        # one geometry for both packs: L4 bounds both unpacked row widths
         LP = hp.round_up(max(L4, 128), 128)
         K = (T + LP) // 128
         wpad = hp.round_up(W_fixed, T)
@@ -301,35 +421,87 @@ class DeviceBackend:
         aligned = f_pos - (f_pos % 128)
         order = np.argsort(aligned, kind="stable")
         srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
-        seqpack = np.zeros((n, Lq), np.uint8)
-        pos_p = np.zeros(n, np.int32)
-        parity_p = np.zeros(n, np.uint8)
-        if n:
-            hp.pack2_rows(seq, qual, rows[order], pos, st, Lq, win_start,
-                          min_phred, out=(seqpack, pos_p, parity_p))
+        geom = dict(Nb=n, ntiles=ntiles, K=K, LP=LP)
+        if nch == 2:
+            seqpack = np.zeros((n, Lq), np.uint8)
+            pos_p = np.zeros(n, np.int32)
+            parity_p = np.zeros(n, np.uint8)
+            if n:
+                hp.pack2_rows(seq, qual, rows[order], pos, st, Lq, win_start,
+                              min_phred, out=(seqpack, pos_p, parity_p))
+            program = functools.partial(fused_window_pregated2, Lq=Lq, **geom)
+        else:
+            Lh = (L + 1) // 2
+            seqpack, pos_p, parity_p = hp.pack4bit_rows(
+                seq, qual, rows[order], pos, st, Lh, win_start, min_phred)
+            program = functools.partial(fused_window_pregated, Lh=Lh, **geom)
 
-        if not -512 <= woff_rel <= 512:
-            raise ValueError(f"window/reference offset {woff_rel} out of range")
-        ref_p = hp.ref_padded(ref_window, wpad + 256)
-        isc, isg = hp.ref_bits(ref_p, woff_rel, wpad)
-        cand = np.nonzero(hp.ctx_mask_np(
-            hp.unpack_mask(isc, wpad), hp.unpack_mask(isg, wpad),
-            hp.ctx_code(cfg), wpad))[0].astype(np.int64)
+        ref_p, isc, isg, cand = self._window_reference(cfg, ref_window,
+                                                       woff_rel, wpad)
         hard_k = _hard_rows({"hard": hard, "seq": seq, "qual": qual,
                              "refpos": refpos, "st": st,
                              "win_start": win_start}, ref_p, woff_rel)
-        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p), isc,
-                             isg, srtk, cntk, ntiles=ntiles, K=K, LP=LP,
-                             cand=cand)
+        fetch = self._launch(
+            [seqpack, hp.shp_bytes(pos_p, parity_p), isc, isg], [srtk, cntk],
+            program, nch=nch, W=wpad, cand=cand)
+        return self._finalize_single(fetch, hard_k, W_fixed, wpad, min_phred,
+                                     nch)
 
-        def finalize():
-            cm = fetch()
-            out = np.zeros((W_fixed, 4), np.uint32)
-            out[:, :2] = cm[:, :W_fixed].T
-            _fold_hard(out, hard_k, W_fixed, wpad, min_phred)
-            return out
+    def _dispatch_v2(self, cfg, seq, qual, refpos, pos, st, hard, a_np, b_np,
+                     pair_simple, ref_window, win_start, woff_rel, W_fixed):
+        """``_fused_dispatch`` (MDTPU_FUSED=v2): the simple rows go up
+        unshifted with their raw quals and the pair table of their simple
+        pairs; on the card the overlaps are arbitrated in place and the
+        qual-gated 12-count program runs (NCH=2 or 4). The hard rows and
+        pairs are arbitrated and counted on the host at finalize. Returns
+        finalize() -> uint32 [W_fixed, 4]."""
+        nch = 4 if cfg.minOppositeDepth > 0 else 2
+        rows = np.nonzero(~hard)[0]
+        n = len(rows)
+        L = seq.shape[1]
+        LP = hp.round_up(max(L, 128), 128)
+        K = (T + LP) // 128
+        wpad = hp.round_up(W_fixed, T)
+        ntiles = wpad // T
+        min_phred = int(cfg.minPhred)
 
-        return finalize
+        f_pos = (pos[rows] - win_start).astype(np.int64)
+        aligned = f_pos - (f_pos % 128)
+        order = np.argsort(aligned, kind="stable")
+        src = rows[order]
+        al_s = aligned[order]
+        srtk, cntk = hp.group_tables(al_s, ntiles, K, LP)
+        st_s = st[src]
+        shp = hp.shp_bytes(f_pos[order].astype(np.int32),
+                           (st_s & 1).astype(np.uint8))
+
+        # pairs of simple rows in the sorted frame (device.py:2613-2623)
+        frame = np.full(len(hard), -1, np.int64)
+        frame[src] = np.arange(n)
+        sp = np.asarray(pair_simple, bool)
+        pa, pb, code = hp.v2_pair_tables(al_s, st_s, frame[a_np[sp]],
+                                         frame[b_np[sp]])
+        P = len(pa)
+        if P and np.bincount(np.concatenate([pa, pb]), minlength=n).max() > 1:
+            raise ValueError("a read is in more than one mate pair")
+
+        ref_p, isc, isg, cand = self._window_reference(cfg, ref_window,
+                                                       woff_rel, wpad)
+        hard_k = _hard_rows_v2(seq, qual, refpos, st, hard, a_np, b_np,
+                               pair_simple, win_start, ref_p, woff_rel)
+        program = functools.partial(
+            fused_fast_window, Nb=n, L=L, P=P, ntiles=ntiles, K=K, LP=LP,
+            nch=nch, min_phred=min_phred)
+
+        def wide(b, m):
+            # the quals in the blob were arbitrated by the first launch
+            return program(b, m, sat_bits=32, arbitrated=True)[0]
+
+        fetch = self._launch([seq[src], qual[src], shp, code, isc, isg],
+                             [srtk, cntk, pa, pb], program, nch=nch, W=wpad,
+                             cand=cand, wide=wide)
+        return self._finalize_single(fetch, hard_k, W_fixed, wpad, min_phred,
+                                     nch)
 
     # ------------------------------------------------------------- groups
 
@@ -499,9 +671,11 @@ class DeviceBackend:
             w.clear()  # finalize must not pin the window's big arrays
         del wins, live, per, geo
 
-        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p),
-                             isc_all, isg_all, srtk, cntk, ntiles=ntiles,
-                             K=K, LP=LP)
+        fetch = self._launch(
+            [seqpack, hp.shp_bytes(pos_p, parity_p), isc_all, isg_all],
+            [srtk, cntk], functools.partial(
+                fused_window_pregated2, Nb=n_tot, Lq=Lq, ntiles=ntiles, K=K,
+                LP=LP), nch=2, W=W_tot)
 
         def finalize():
             cm = fetch()
@@ -512,7 +686,7 @@ class DeviceBackend:
                 if cand is not None and len(cand):
                     m = cand < Ws[k]
                     out[cand[m], :2] = cm[:, k * P : k * P + len(cand)].T[m]
-                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred)
+                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred, 2)
                 outs.append(out)
             return outs
 
@@ -590,9 +764,11 @@ class DeviceBackend:
         cand = np.nonzero(hp.ctx_mask_np(
             hp.unpack_mask(isc_all, W_tot), hp.unpack_mask(isg_all, W_tot),
             hp.ctx_code(cfg), (S, wpad1)))[0].astype(np.int64)
-        fetch = self._launch(seqpack, hp.shp_bytes(pos_p, parity_p),
-                             isc_all, isg_all, srtk, cntk, ntiles=ntiles,
-                             K=K, LP=LP, cand=cand)
+        fetch = self._launch(
+            [seqpack, hp.shp_bytes(pos_p, parity_p), isc_all, isg_all],
+            [srtk, cntk], functools.partial(
+                fused_window_pregated2, Nb=n_tot, Lq=Lq, ntiles=ntiles, K=K,
+                LP=LP), nch=2, W=W_tot, cand=cand)
 
         def finalize():
             cm = fetch()
@@ -600,7 +776,7 @@ class DeviceBackend:
             for k in range(Kw):
                 out = np.zeros((Ws[k], 4), np.uint32)
                 out[:, :2] = cm[:, k * S : k * S + Ws[k]].T
-                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred)
+                _fold_hard(out, hard[k], Ws[k], wpad1, min_phred, 2)
                 outs.append(out)
             return outs
 

@@ -2,10 +2,11 @@
 
 ``methyldackel_tpu/parallel/device.py`` keeps its host helpers beside its JAX
 code and imports jax at module scope, so the port carries its own copies of
-the ones the default extract path runs (row classification, mate pairing and
-overlap arbitration, the 2-bit semantic pack, the reference bitmaps, the
-context candidate mask, the offset-group tables) over the same native
-kernels (``methyldackel_tpu.io.native``) and the same numpy fallbacks.
+the ones the port's window programs run (row classification, mate pairing
+and overlap arbitration, the 2-bit semantic and 4-bit nibble packs, the v2
+pair table, the reference bitmaps, the context candidate mask, the
+offset-group tables) over the same native kernels
+(``methyldackel_tpu.io.native``) and the same numpy fallbacks.
 
 Not carried over: the shape-bucket high-water floors, the row-count
 padding and the prewarm of the reference, which exist only to bound XLA
@@ -120,15 +121,14 @@ def rows_no_eq_base(seq, l_qseq):
     return ~((seq == 0) & (col < lq)).any(axis=1)
 
 
-def prep_v3_rows(cfg, batch, strand_arr, keep, kidx):
-    """Row selection, gapless classification, mate pairing and host overlap
-    arbitration (device.py:2308; overlaps.c:54-119). Returns (seq, qual,
-    refpos, pos, lq, st, hard_rows) with ``qual`` arbitrated; hard rows
-    (indels, '=' bases, pairs holding one) are left to the host oracle. The
-    caller's batch is never mutated (qual is copied)."""
+def _rows_and_pairs(batch, strand_arr, kidx, copy_qual):
+    """The kept rows (views when every row is kept; ``qual`` copied on
+    request), their gapless/no-'=' flags, the mate pairs, the pairs whose
+    mates are both simple, and the hard rows: the non-simple ones and both
+    mates of a pair holding one (device.py:2418-2451)."""
     if len(kidx) == batch.n:
         seq = batch.seq
-        qual = batch.qual.copy()
+        qual = batch.qual.copy() if copy_qual else batch.qual
         refpos = batch.refpos
         pos = batch.pos
         lq = batch.l_qseq
@@ -144,11 +144,53 @@ def prep_v3_rows(cfg, batch, strand_arr, keep, kidx):
     if simple is None:
         simple = rows_gapless(refpos, pos, lq) & rows_no_eq_base(seq, lq)
     a_np, b_np = sem.pair_mates_batch(batch, kidx)
+    pair_simple = np.ones(len(a_np), bool)
     hard = ~simple
     if len(a_np):
         pair_simple = simple[a_np] & simple[b_np]
         hard[a_np[~pair_simple]] = True
         hard[b_np[~pair_simple]] = True
+    return (seq, qual, refpos, pos, lq, st, simple, hard, a_np, b_np,
+            pair_simple)
+
+
+def prep_v2_rows(cfg, batch, strand_arr, keep, kidx):
+    """Row selection, gapless classification and mate pairing of the v2
+    window program, without host arbitration (device.py:2418-2451): the
+    card arbitrates the simple pairs, the host fold the hard ones. Returns
+    (seq, qual, refpos, pos, lq, st, hard_rows, a, b, pair_simple); the
+    arrays are views of the batch when every row is kept, never mutated."""
+    (seq, qual, refpos, pos, lq, st, _simple, hard, a_np, b_np,
+     pair_simple) = _rows_and_pairs(batch, strand_arr, kidx, False)
+    return seq, qual, refpos, pos, lq, st, hard, a_np, b_np, pair_simple
+
+
+def v2_pair_tables(al_s, st_s, pa_f, pb_f):
+    """The pair table of ``_fused_dispatch`` (device.py:2613-2623) in the
+    sorted row frame: mate a is the one with the smaller aligned start (a
+    swap only when strictly greater, so pairs in one 128-block keep
+    ``pair_mates_batch`` order: b wins a qual tie on the same base), and
+    ``code`` is the block shift 0-2 when both mates have the same strand
+    parity, else 3 (left alone). Returns (pa int32, pb int32, code u8)."""
+    al_s = np.asarray(al_s, np.int64)
+    st_s = np.asarray(st_s, np.int64)
+    swap = al_s[pa_f] > al_s[pb_f]
+    pa = np.where(swap, pb_f, pa_f)
+    pb = np.where(swap, pa_f, pb_f)
+    sh = (al_s[pb] - al_s[pa]) // 128
+    elig = (((st_s[pa] - st_s[pb]) & 1) == 0) & (sh >= 0) & (sh <= 2)
+    code = np.where(elig, sh, 3).astype(np.uint8)
+    return pa.astype(np.int32), pb.astype(np.int32), code
+
+
+def prep_v3_rows(cfg, batch, strand_arr, keep, kidx):
+    """Row selection, gapless classification, mate pairing and host overlap
+    arbitration (device.py:2308; overlaps.c:54-119). Returns (seq, qual,
+    refpos, pos, lq, st, hard_rows) with ``qual`` arbitrated; hard rows
+    (indels, '=' bases, pairs holding one) are left to the host oracle. The
+    caller's batch is never mutated (qual is copied)."""
+    (seq, qual, refpos, pos, lq, st, simple, hard, a_np, b_np,
+     _ps) = _rows_and_pairs(batch, strand_arr, kidx, True)
 
     a_t, b_t = sem.touching_pairs(batch.pos[kidx], batch.endpos[kidx],
                                   a_np, b_np)
@@ -250,6 +292,28 @@ def pack2_rows(seq, qual, src, pos, st, Lq: int, win_start: int,
     seqpack[:] = pack4(v)
     pos_p[:] = pos[src] - win_start
     parity_p[:] = par
+
+
+def pack4bit_rows(seq, qual, src, pos, st, Lh: int, win_start: int,
+                  min_phred: int):
+    """The NCH=4 window-space pack (device.py:1312-1328): rows ``src``
+    phred pre-gated (a base under min_phred becomes code 0) and packed two
+    codes to a byte, code 2j in the low nibble of byte j. Returns (seqpack
+    [n, Lh], pos_p = pos - win_start, parity_p)."""
+    n = len(src)
+    if n:
+        nat = native.v3_pack(seq, qual, src, pos, st, Lh, n, win_start,
+                             min_phred)
+        if nat is not None:
+            return nat
+    f_seq = np.where(qual[src] >= min_phred, seq[src], 0).astype(np.uint8)
+    if 2 * Lh != f_seq.shape[1]:
+        f_seq = np.concatenate(
+            [f_seq, np.zeros((n, 2 * Lh - f_seq.shape[1]), np.uint8)], axis=1)
+    seqpack = np.ascontiguousarray(f_seq[:, 0::2] | (f_seq[:, 1::2] << 4))
+    pos_p = (pos[src] - win_start).astype(np.int32)
+    parity_p = (st[src] & 1).astype(np.uint8)
+    return seqpack, pos_p, parity_p
 
 
 def pack2_cand_rows(seq, qual, src, pos, st, Lq: int, win_start: int,

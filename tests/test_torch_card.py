@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA kernel against its plain PyTorch
-version, and the port CLI on the card against the host engine. They import
-no jax (the card's machine has none) and skip without a CUDA device:
+"""Card-only tests of the port: the CUDA kernels against their plain
+PyTorch versions, and the port CLI on the card against the host engine.
+They import no jax (the card's machine has none) and skip without a CUDA
+device:
 
     python -m pytest tests/test_torch_card.py -m cuda
 """
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from methyldackel_tpu_torch.ops import arbitrate as tar
 from methyldackel_tpu_torch.ops import pileup as tpk
+from methyldackel_tpu_torch.ops import pileup4 as tp4
 from methyldackel_tpu_torch.parallel import host_prep as hp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,12 +61,103 @@ def test_kernel_matches_plain_on_card(Lq, LP):
             assert int(gov) == int(wov)
 
 
+def _bytes_equal(got, want):
+    torch.cuda.synchronize()
+    return torch.equal(got.view(torch.uint8).cpu(), want.view(torch.uint8).cpu())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("env", [{}, {"MDTPU_BATCH_WINDOWS": "1"},
-                                 {"MDTPU_CANDSPACE": "0"}])
-def test_cli_on_card_matches_host_engine(tmp_path, env):
+@pytest.mark.parametrize("qual_mode", [False, True])
+def test_pileup4_matches_plain_on_card(qual_mode):
+    """Both layouts, NCH 2 and 4, all three widths, dense and compacted,
+    rows straddling both ends, zero (gated or absent) codes."""
+    _need_card()
+    rng = np.random.default_rng(7 + qual_mode)
+    ntiles, n, L = 16, 4000, 150
+    LP = 256
+    K = (T + LP) // 128
+    W = ntiles * T
+    f_pos = np.sort(rng.integers(-L - 130, W + 40, n))
+    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    codes = np.array([0, 1, 2, 4, 8, 15, 3], np.uint8)[
+        rng.integers(0, 7, (n, L if qual_mode else (L + 1) // 2))]
+    if not qual_mode:
+        codes = codes | (np.array([0, 1, 2, 4, 8, 15], np.uint8)[
+            rng.integers(0, 6, codes.shape)] << 4)
+    host = (codes, hp.shp_bytes(f_pos.astype(np.int32),
+                                rng.integers(0, 2, n).astype(np.uint8)),
+            srtk, cntk, rng.integers(0, 256, W // 8, dtype=np.uint8),
+            rng.integers(0, 256, W // 8, dtype=np.uint8))
+    args = [torch.from_numpy(a).cuda() for a in host]
+    mode = {}
+    if qual_mode:
+        mode = dict(qual=torch.from_numpy(rng.integers(
+            0, 42, (n, L), dtype=np.uint8)).cuda(), min_phred=5)
+    cand = np.sort(rng.choice(W, W // 7, replace=False))
+    dst = np.full(W, -1, np.int32)
+    dst[cand] = np.arange(len(cand), dtype=np.int32)
+    for nch in (2, 4):
+        for sat in (8, 16, 32):
+            for extra in ({}, dict(dst=torch.from_numpy(dst).cuda(),
+                                   out_width=len(cand))):
+                kw = dict(ntiles=ntiles, K=K, LP=LP, nch=nch, sat_bits=sat,
+                          **extra, **mode)
+                key = "qual" if qual_mode else "nq"
+                before = tp4.LAUNCHES[key]
+                got, gov = tp4.pileup4_tiles(*args, **kw)
+                want, wov = tp4.pileup4_tiles_reference(*args, **kw)
+                assert tp4.LAUNCHES[key] == before + 1
+                assert _bytes_equal(got, want)
+                assert int(gov) == int(wov)
+
+
+@pytest.mark.cuda
+def test_arbitrate_matches_plain_on_card():
+    """Pairs at block shifts 0-2 and code 3, N bases, ties, quals to 255,
+    rewritten in place."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    P, L = 3000, 150
+    n = 2 * P
+    f_pos = np.sort(rng.integers(0, 200_000, n)).astype(np.int64)
+    f_pos[1::2] = f_pos[0::2] + rng.integers(0, 330, P)
+    order = np.argsort(f_pos - f_pos % 128, kind="stable")
+    frame = np.empty(n, np.int64)
+    frame[order] = np.arange(n)
+    st = rng.integers(1, 3, n)
+    st[1::2] = st[0::2]
+    st[1::9] ^= 3
+    al = (f_pos - f_pos % 128)[order]
+    pa, pb, code = hp.v2_pair_tables(al, st[order], frame[0::2], frame[1::2])
+    assert set(np.unique(code)) == {0, 1, 2, 3}
+    seq = np.array([1, 2, 4, 8, 15, 0], np.uint8)[
+        rng.choice(6, (n, L), p=[0.3, 0.2, 0.2, 0.2, 0.05, 0.05])]
+    qual = rng.integers(0, 256, (n, L), dtype=np.uint8)
+    shp = hp.shp_bytes(f_pos[order].astype(np.int32),
+                       (st[order] & 1).astype(np.uint8))
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+           for a in (seq, shp, pa, pb, code)]
+    q0 = torch.from_numpy(qual).cuda()
+    got, want = q0.clone(), q0.clone()
+    before = tar.LAUNCHES
+    tar.arbitrate(dev[0], got, *dev[1:])
+    tar.arbitrate_reference(dev[0], want, *dev[1:])
+    torch.cuda.synchronize()
+    assert tar.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((got != q0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,extra", [
+    ({}, []), ({"MDTPU_BATCH_WINDOWS": "1"}, []), ({"MDTPU_CANDSPACE": "0"}, []),
+    ({}, ["--minOppositeDepth", "2", "--maxVariantFrac", "0.1"]),
+    ({"MDTPU_FUSED": "v2"}, []),
+    ({"MDTPU_FUSED": "v2"}, ["--minOppositeDepth", "2", "--maxVariantFrac",
+                             "0.1"])])
+def test_cli_on_card_matches_host_engine(tmp_path, env, extra):
     """`python -m methyldackel_tpu_torch.cli extract` with MDTPU_ENGINE=cuda
-    writes the host engine's bytes."""
+    writes the host engine's bytes, on every route the card serves."""
     _need_card()
     from methyldackel_tpu.utils.simulate import write_synthetic_input
 
@@ -76,7 +170,7 @@ def test_cli_on_card_matches_host_engine(tmp_path, env):
         d.mkdir()
         res = subprocess.run(
             [sys.executable, "-m", "methyldackel_tpu_torch.cli", "extract",
-             "--chunkSize", "7000", fa, bam, "-o", "o"],
+             "--chunkSize", "7000", *extra, fa, bam, "-o", "o"],
             cwd=d, env=dict(base, MDTPU_ENGINE=engine, **env),
             capture_output=True, text=True, timeout=600)
         assert res.returncode == 0, res.stderr

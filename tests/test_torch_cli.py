@@ -118,6 +118,10 @@ def synthetic_input(tmp_path_factory):
     ({"MDTPU_STEAL": "1"}, ["-@", "2"]),
     ({}, ["--CHG", "--CHH", "--mergeContext"]),
     ({}, ["--cytosine_report"]),
+    ({"MDTPU_FUSED": "v2"}, []),
+    ({}, ["--minOppositeDepth", "2", "--maxVariantFrac", "0.1"]),
+    ({"MDTPU_FUSED": "v2"}, ["--minOppositeDepth", "2", "--maxVariantFrac",
+                             "0.1"]),
 ])
 def test_port_cli_synthetic_windows(tmp_path, monkeypatch, synthetic_input,
                                     env, extra):
@@ -131,30 +135,32 @@ def test_port_cli_synthetic_windows(tmp_path, monkeypatch, synthetic_input,
 
 def test_min_opposite_depth_is_routed_and_counted(tmp_path, monkeypatch,
                                                   capsys, synthetic_input):
+    """--minOppositeDepth windows take the 4-channel program on the
+    device lane (none is routed to the host engine), byte-identical."""
     fa, bam = synthetic_input
     backend = _run_both(monkeypatch, tmp_path,
                         ["--chunkSize", "3000", "--minOppositeDepth", "1",
                          fa, bam, "-o", "o"])
-    assert backend.host_routed > 0
-    err = capsys.readouterr().err
-    assert err.count("routed to the host engine: --minOppositeDepth") == 1
+    assert backend.host_routed == 0
+    assert "routed to the host engine" not in capsys.readouterr().err
 
 
-def test_port_extract_imports_no_jax(tmp_path):
-    """In a fresh process (conftest imports jax into this one)."""
+def _extract_without_jax(tmp_path, extra=(), port_env=None):
+    """The port's extract in a fresh process (conftest imports jax into
+    this one), which must leave jax out of sys.modules."""
     fa, bam = write_synthetic_input(str(tmp_path), 300, 100, 6000, seed=1)
     code = (
         "import sys\n"
         "from methyldackel_tpu_torch.cli import extract\n"
-        f"rc, be = extract(['--chunkSize', '2000', {fa!r}, {bam!r}, "
-        "'-o', 'o'], device='cpu')\n"
+        f"rc, be = extract(['--chunkSize', '2000', *{list(extra)!r}, {fa!r}, "
+        f"{bam!r}, '-o', 'o'], device='cpu')\n"
         "assert rc == 0 and be.host_routed == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.endswith(('parallel.device', 'pileup_pallas'))"
         " and m.startswith('methyldackel_tpu.')]\n"
         "assert not bad, bad\n"
         "print('no-jax-ok')\n")
-    env = dict(os.environ, MDTPU_STEAL="0",
+    env = dict(os.environ, MDTPU_STEAL="0", **(port_env or {}),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("MDTPU_TRACE_DIR", None)
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
@@ -162,6 +168,18 @@ def test_port_extract_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "no-jax-ok" in res.stdout
     assert (tmp_path / "o_CpG.bedGraph").stat().st_size > 100
+
+
+def test_port_extract_imports_no_jax(tmp_path):
+    _extract_without_jax(tmp_path)
+
+
+@pytest.mark.parametrize("env,extra", [
+    ({}, ["--minOppositeDepth", "1", "--maxVariantFrac", "0.2"]),
+    ({"MDTPU_FUSED": "v2"}, [])])
+def test_port_routes_import_no_jax(tmp_path, env, extra):
+    """The 4-channel program and the v2 program import no jax either."""
+    _extract_without_jax(tmp_path, extra, env)
 
 
 def test_select_backend_modes(monkeypatch):
