@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR] [--busy]
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -16,19 +16,32 @@ printing a result:
    windows of 1 Mb at 30x-like depth) in u8, u16 and u32 plus an input built
    to overflow u8; ``pileup4`` in both layouts at one 1 Mb window of 240k
    reads of 150 bp (the --minOppositeDepth and v2 single-window programs),
-   NCH 2 and 4, dense and compacted, all widths, plus an overflow input;
-   ``arbitrate`` at 120k pairs of 150 bp with block shifts 0-2 and
-   ineligible pairs. Times are CUDA-event medians after warm-up, plain and
-   kernel in turns.
+   NCH 2 and 4, dense and compacted, all widths, plus an overflow input and
+   the staging's edge cases (more than one chunk, a range whose first byte
+   is not 16-byte aligned, an odd read length, tiles without rows, a
+   partial last tile); ``arbitrate`` at 120k pairs of 150 bp with block
+   shifts 0-2 and ineligible pairs. Times are CUDA-event medians after
+   warm-up, plain and kernel in turns. Beside each time stands the kernel's
+   bound: the bytes the function must move (every input read once, every
+   output written once, computed from this run's inputs) over the card's
+   published 3.35 TB/s, or its integer operations over the published
+   1,979 TOP/s, whichever is larger. No single PyTorch call computes any
+   of the four functions (each fuses unpack, shift, strand/reference
+   classification, count and narrowing), so ``library_ms`` is null.
+   With ``--parent DIR`` (a checkout of an earlier commit), that commit's
+   ``pileup4.cu`` is built too and timed on the same inputs in turns with
+   this one (parent, change, change, parent).
 3. The main paths end to end on a synthetic 2M-read WGBS input, through
    ``extract`` of the port (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every
    window goes to the card): the default extract, ``--minOppositeDepth 5
    --maxVariantFrac 0.1`` (variant exclusion, the 4-channel program) and
    ``MDTPU_FUSED=v2`` (arbitration on the card). Each CpG bedGraph must be
-   byte-identical to the reference CLI's exact host engine
-   (MDTPU_ENGINE=host), each path's kernels must have launched, no window
+   byte-identical to the port's exact host engine (MDTPU_ENGINE=host, in
+   its own process), each path's kernels must have launched, no window
    may have been routed to the host, and the variant run must exclude
    positions. Port and host engine run in turns in this process for reads/s.
+   With ``--busy`` each path runs once more under torch.profiler with the
+   engine's stage timers on, for the device's busy share of the wall time.
 4. Side routes on a small input with indel and '=' reads: single-window
    dispatch, the window-space group, CHG+CHH, the 4-channel program, v2,
    v2 with --minOppositeDepth; and a ~900x deep input whose counts overflow
@@ -36,12 +49,14 @@ printing a result:
    byte-identical to the host engine.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the card
-line and a JSON line with each kernel's launches, error and times. Nothing
-here imports jax. Work files go to ``_chip_smoke_work/`` beside this script
-and are removed at the end.
+line and a JSON line with each kernel's launches, error, times and bound.
+Nothing here imports jax or the JAX package. Work files go to
+``_chip_smoke_work/`` beside this script and are removed at the end.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -56,6 +71,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_chip_smoke_work")
 T = 512
 REPS = 10
+# published peaks of one H100 SXM at its full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the int8 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes_of(*arrays):
+    return int(sum(a.numel() * a.element_size() for a in arrays
+                   if a is not None))
 
 
 def card_line() -> str:
@@ -96,6 +127,65 @@ def turns_ms(kernel, plain, reps=REPS):
     return float(np.median(k)), float(np.median(p))
 
 
+def kernel_device_ms(fn, name_part, reps=REPS):
+    """Device durations (ms) of the CUDA kernel whose name holds
+    ``name_part`` among those ``fn()`` launches, read from a torch.profiler
+    (CUPTI) trace: (median with a cold L2, median with a warm one), each
+    over ``reps`` calls. Cold: a 256 MB buffer is zeroed before every call,
+    as the dispatch's fresh upload would leave the 50 MB L2; warm: calls
+    back to back. The kernel's own time, whatever the wrapper's host code
+    and allocations cost. (None, None) when the trace holds no such
+    kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    def trace(cold):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name_part in e.name]
+
+    medians = []
+    for cold in (True, False):
+        durs = trace(cold)
+        if len(durs) < reps:  # a trace can come back short: once more
+            durs = max(durs, trace(cold), key=len)
+        medians.append(float(np.median(durs)) if len(durs) >= 3 else None)
+    if None in medians:
+        medians = [None, None]
+    return tuple(medians)
+
+
+def timed(name, kernel_name, kernel, plain):
+    """All times of one kernel: dict(ms, ms_warm, wrapper_ms, plain_ms,
+    timed_by). ``wrapper_ms`` and ``plain_ms`` are CUDA-event medians
+    around whole calls, in turns (they include the wrapper's host code and
+    output allocation, which at these sizes can outlast the kernel);
+    ``ms`` is the kernel's device time with a cold L2 and ``ms_warm`` with
+    a warm one (``kernel_device_ms``). Should the profiler show no kernel,
+    ``ms`` falls back to ``wrapper_ms`` and ``timed_by`` says so."""
+    w_ms, p_ms = turns_ms(kernel, plain)
+    cold, warm = kernel_device_ms(kernel, kernel_name)
+    by = "torch.profiler kernel duration, cold L2"
+    if cold is None:
+        cold, warm, by = w_ms, None, "CUDA events around the wrapper"
+    print(f"  {name}: kernel {cold:.4f} ms on the device with a cold L2"
+          + (f", {warm:.4f} ms with a warm one" if warm is not None else "")
+          + f" ({by}); wrapper call {w_ms:.4f} ms, plain version "
+          f"{p_ms:.4f} ms (CUDA events, median of {REPS}, in turns; "
+          f"{card_line()})", flush=True)
+    return dict(ms=cold, ms_warm=warm, wrapper_ms=w_ms, plain_ms=p_ms,
+                timed_by=by)
+
+
 # ------------------------------------------------------- phase 2: kernel
 
 def group_inputs(rng, *, Kw, pitch, span, lo, n_per, Lq, LP, ctx_slot):
@@ -130,7 +220,8 @@ def group_inputs(rng, *, Kw, pitch, span, lo, n_per, Lq, LP, ctx_slot):
 
 def kernel_vs_plain(name, inp, compact):
     """Bit-equality in all three widths, then times at u8. Returns
-    (max_abs_err, kernel ms, plain ms)."""
+    the times of ``timed`` plus err, bytes (every input once + the u8
+    output once) and ops (a compare and an add per code of every row)."""
     import torch
 
     from methyldackel_tpu_torch.ops import pileup as pk
@@ -162,13 +253,15 @@ def kernel_vs_plain(name, inp, compact):
         if d != 0 or int(got_ovf.item()) != int(want_ovf.item()):
             raise AssertionError(f"{name} u{sat}: kernel != plain version")
     kw8 = dict(geom, sat_bits=8, **extra)
-    k_ms, p_ms = turns_ms(lambda: pk.pileup2_tiles(*args, **kw8),
-                          lambda: pk.pileup2_tiles_reference(*args, **kw8))
     print(f"  {name}: rows {len(inp['shp'])} tiles {inp['ntiles']} K "
-          f"{inp['K']} Lq {inp['seqpack'].shape[1]}: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms (median of {REPS}; {card_line()})",
-          flush=True)
-    return err, k_ms, p_ms
+          f"{inp['K']} Lq {inp['seqpack'].shape[1]}", flush=True)
+    res = timed(name, "pileup2_kernel",
+                lambda: pk.pileup2_tiles(*args, **kw8),
+                lambda: pk.pileup2_tiles_reference(*args, **kw8))
+    out8, ovf8 = pk.pileup2_tiles(*args, **kw8)
+    res.update(err=err, bytes=nbytes_of(*args, extra.get("dst"), out8, ovf8),
+               ops=2 * inp["seqpack"].size * 4)
+    return res
 
 
 def overflow_case(rng):
@@ -210,15 +303,13 @@ def window_inputs(rng, *, n, L, wpad, qual_mode):
     rows of L codes (A/C/G/T/N, some 0 = gated or absent) starting anywhere
     in [-L, wpad), nibble-packed (nq) or one per byte with quals 0-41
     (qual), random parities, reference bitmaps of a random 42% GC genome,
-    and the compaction map of its CpG candidates. Group tables come from
-    the dispatch's own host code."""
+    and the compaction map of its CpG candidates. Row and tile tables come
+    from the dispatch's own host code; ``old`` holds the tables of the
+    earlier interface (phase byte and offset groups) for --parent."""
     from methyldackel_tpu_torch.parallel import host_prep as hp
 
-    LP = hp.round_up(max(4 * ((L + 3) // 4), 128), 128)
-    K = (T + LP) // 128
     ntiles = wpad // T
     f_pos = np.sort(rng.integers(-L + 1, wpad, n))
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
     alphabet = np.array([1, 2, 4, 8, 15, 0], np.uint8)
     p = [0.29, 0.2, 0.2, 0.29, 0.01, 0.01]
     codes = alphabet[rng.choice(6, (n, L), p=p)]
@@ -228,34 +319,63 @@ def window_inputs(rng, *, n, L, wpad, qual_mode):
         if L % 2:
             codes = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1)
         codes = np.ascontiguousarray(codes[:, 0::2] | (codes[:, 1::2] << 4))
-    shp = hp.shp_bytes(f_pos.astype(np.int32),
-                       rng.integers(0, 2, n).astype(np.uint8))
+    Lc = codes.shape[1] * (1 if qual_mode else 2)
+    parity = rng.integers(0, 2, n).astype(np.uint8)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, Lc)
     base = rng.choice(4, wpad, p=[0.29, 0.21, 0.21, 0.29])
     cb, gb = base == 1, base == 2
     cand = np.nonzero(hp.ctx_mask_np(cb, gb, 1, wpad))[0]
     dst = np.full(wpad, -1, np.int32)
     dst[cand] = np.arange(len(cand), dtype=np.int32)
-    return dict(codes=codes, qual=qual if qual_mode else None, shp=shp,
-                srtk=srtk, cntk=cntk, isc=np.packbits(cb),
-                isg=np.packbits(gb), dst=dst, ncand=len(cand),
-                ntiles=ntiles, K=K, LP=LP)
+    LP = hp.round_up(max(4 * ((L + 3) // 4), 128), 128)
+    K = (T + LP) // 128
+    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    old = dict(shp=hp.shp_bytes(f_pos.astype(np.int32), parity), srtk=srtk,
+               cntk=cntk, K=K, LP=LP)
+    return dict(codes=codes, qual=qual if qual_mode else None,
+                spos=hp.row_spos(f_pos, parity), tlo=tlo, thi=thi,
+                isc=np.packbits(cb), isg=np.packbits(gb), dst=dst,
+                ncand=len(cand), ntiles=ntiles, old=old)
 
 
-def pileup4_vs_plain(name, inp, timed_nch):
+def parent_pileup4(parent_dir):
+    """The ``mdtpu_pileup4`` entry of an earlier commit's ``pileup4.cu``
+    (the interface with the phase byte and the offset groups), built with
+    this checkout's build code into its own directory."""
+    from methyldackel_tpu_torch.ops import build
+
+    src = os.path.join(parent_dir, "methyldackel_tpu_torch", "csrc",
+                       "pileup4.cu")
+    out = os.path.join(build.BUILD_DIR, "libpileup4_parent.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
+                   check=True)
+    fn = ctypes.CDLL(out).mdtpu_pileup4
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
     """Bit-equality in NCH 2 and 4, all three widths, dense and compacted;
     then times of the compacted u8 program at ``timed_nch`` (the main
-    path's readback). Returns (max_abs_err, kernel ms, plain ms)."""
+    path's readback). Returns the times of ``timed`` plus err, bytes (every
+    input once + the output once), ops (four channel updates per code of
+    every row) and, with ``parent_fn``, parent_ms. ``parent_fn`` (see
+    ``parent_pileup4``) is timed in turns with the kernel on the same
+    rows and must store the same bytes."""
     import torch
 
     from methyldackel_tpu_torch.ops import pileup4 as p4
 
     dev = torch.device("cuda")
     args = [torch.from_numpy(inp[k]).to(dev)
-            for k in ("codes", "shp", "srtk", "cntk", "isc", "isg")]
+            for k in ("codes", "spos", "tlo", "thi", "isc", "isg")]
     mode = {}
     if inp["qual"] is not None:
         mode = dict(qual=torch.from_numpy(inp["qual"]).to(dev), min_phred=5)
-    geom = dict(ntiles=inp["ntiles"], K=inp["K"], LP=inp["LP"], **mode)
+    geom = dict(ntiles=inp["ntiles"], **mode)
     compact = dict(dst=torch.from_numpy(inp["dst"]).to(dev),
                    out_width=inp["ncand"])
     err = 0
@@ -280,30 +400,71 @@ def pileup4_vs_plain(name, inp, timed_nch):
                           f"u8/u16/u32, dense and compacted: max_abs_err 0",
                           flush=True)
     kw8 = dict(geom, nch=timed_nch, sat_bits=8, **compact)
-    k_ms, p_ms = turns_ms(lambda: p4.pileup4_tiles(*args, **kw8),
-                          lambda: p4.pileup4_tiles_reference(*args, **kw8))
-    print(f"  {name}: rows {len(inp['shp'])} tiles {inp['ntiles']} K "
-          f"{inp['K']} row bytes {inp['codes'].shape[1]}, nch {timed_nch} "
-          f"compacted u8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median "
-          f"of {REPS}; {card_line()})", flush=True)
-    return err, k_ms, p_ms
+    print(f"  {name}: rows {len(inp['spos'])} tiles {inp['ntiles']} row "
+          f"bytes {inp['codes'].shape[1]}, nch {timed_nch} compacted u8",
+          flush=True)
+    res = timed(name, "pileup4_kernel",
+                lambda: p4.pileup4_tiles(*args, **kw8),
+                lambda: p4.pileup4_tiles_reference(*args, **kw8))
+    out8, ovf8 = p4.pileup4_tiles(*args, **kw8)
+    Lc = inp["codes"].shape[1] * (1 if inp["qual"] is not None else 2)
+    res.update(err=err, ops=4 * len(inp["spos"]) * Lc, bytes=nbytes_of(
+        *args, mode.get("qual"), compact["dst"], out8, ovf8))
+    if parent_fn is not None:
+        old = inp["old"]
+        o_args = [torch.from_numpy(old[k]).to(dev)
+                  for k in ("shp", "srtk", "cntk")]
+        o_out = torch.zeros_like(out8)
+        o_ovf = torch.zeros_like(ovf8)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        qual = mode.get("qual")
+
+        def parent():
+            rc = parent_fn(
+                args[0].data_ptr(),
+                None if qual is None else qual.data_ptr(),
+                o_args[0].data_ptr(), o_args[1].data_ptr(),
+                o_args[2].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
+                compact["dst"].data_ptr(), o_out.data_ptr(),
+                o_ovf.data_ptr(), inp["ntiles"], old["K"], old["LP"], Lc,
+                inp["codes"].shape[1], inp["ntiles"] * T, inp["ncand"],
+                timed_nch, 5, 8, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent pileup4 launch: cudaError {rc}")
+
+        parent()
+        torch.cuda.synchronize()
+        if not torch.equal(o_out, out8):
+            raise AssertionError(f"{name}: parent kernel != this kernel")
+        # parent, change, change, parent
+        par = [kernel_device_ms(parent, "pileup4_kernel")]
+        new = [kernel_device_ms(lambda: p4.pileup4_tiles(*args, **kw8),
+                                "pileup4_kernel") for _ in range(2)]
+        par.append(kernel_device_ms(parent, "pileup4_kernel"))
+        res["parent_ms"], res["parent_ms_warm"] = par[0]
+        print(f"  {name}: parent commit's kernel, this one, this one, "
+              f"parent (ms on the device, cold L2 / warm L2): "
+              + ", ".join(f"{c:.4f} / {w:.4f}"
+                          for c, w in (par[0], *new, par[1]))
+              + f" ({card_line()}); stored bytes equal", flush=True)
+    return res
 
 
 def pileup4_overflow_case():
-    """400 rows stacked on one span over an all-C stretch, both layouts:
-    u8 must flag, u16 and u32 must not; kernel == plain in every width."""
+    """400 rows stacked on one span over an all-C stretch, both layouts
+    (more rows than one default staging chunk in the qual layout): u8 must
+    flag, u16 and u32 must not; kernel == plain in every width."""
     import torch
 
     from methyldackel_tpu_torch.ops import pileup4 as p4
     from methyldackel_tpu_torch.parallel import host_prep as hp
 
-    n, L, LP, ntiles = 400, 150, 256, 4
-    K = (T + LP) // 128
+    n, L, ntiles = 400, 150, 4
     f_pos = np.full(n, 700, np.int64)
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
     parity = np.ones(n, np.uint8)
     parity[::3] = 0
-    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
+    spos = hp.row_spos(f_pos, parity)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, L)
     isc = np.full(ntiles * T // 8, 0xFF, np.uint8)
     isg = np.zeros_like(isc)
     dev = torch.device("cuda")
@@ -311,12 +472,12 @@ def pileup4_overflow_case():
         codes = np.full((n, L), 2, np.uint8) if qual_mode \
             else np.full((n, L // 2), 0x22, np.uint8)
         args = [torch.from_numpy(a).to(dev)
-                for a in (codes, shp, srtk, cntk, isc, isg)]
+                for a in (codes, spos, tlo, thi, isc, isg)]
         mode = dict(qual=torch.full((n, L), 30, dtype=torch.uint8,
                                     device=dev), min_phred=5) \
             if qual_mode else {}
         for sat, want_flag in ((8, 1), (16, 0), (32, 0)):
-            kw = dict(ntiles=ntiles, K=K, LP=LP, nch=4, sat_bits=sat, **mode)
+            kw = dict(ntiles=ntiles, nch=4, sat_bits=sat, **mode)
             got, ovf = p4.pileup4_tiles(*args, **kw)
             want, wovf = p4.pileup4_tiles_reference(*args, **kw)
             torch.cuda.synchronize()
@@ -330,12 +491,122 @@ def pileup4_overflow_case():
                 raise AssertionError(f"pileup4 overflow case u{sat} failed")
 
 
+def pileup4_edge_inputs(rng, *, L, qual_mode, ntiles=8, n=3000, deep=700,
+                        shift=0):
+    """Rows for the staging's edge cases (numpy, CPU): an odd or even L,
+    no row anywhere near tiles 3-4 (tiles without rows), ``deep`` rows on
+    one start (a tile range longer than any default chunk), rows running
+    past a real width that ends inside the last tile (its columns there
+    have no output slot), and with ``shift`` > 0 every array placed
+    ``shift`` bytes (codes, qual) or words (spos) into a larger buffer, so
+    no range starts 16-byte aligned. Returns (args, kwargs) of
+    ``pileup4_tiles`` on the CPU, plus the chunk-free facts to assert."""
+    import torch
+
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    W = ntiles * T
+    real_w = W - 200
+    f_pos = rng.integers(-L + 1, real_w + 40, n)
+    f_pos = f_pos[(f_pos < 3 * T - L) | (f_pos >= 5 * T)]
+    f_pos = np.sort(np.concatenate([f_pos, np.full(deep, 5 * T + 77)]))
+    n = len(f_pos)
+    codes = np.array([0, 1, 2, 4, 8, 15, 3], np.uint8)[
+        rng.integers(0, 7, (n, L))]
+    qual = rng.integers(0, 42, (n, L), dtype=np.uint8)
+    if not qual_mode:
+        codes = np.where(qual >= 5, codes, 0).astype(np.uint8)
+        if L % 2:
+            codes = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1)
+        codes = np.ascontiguousarray(codes[:, 0::2] | (codes[:, 1::2] << 4))
+    Lc = codes.shape[1] * (1 if qual_mode else 2)
+    parity = rng.integers(0, 2, n).astype(np.uint8)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, Lc)
+    if not (thi - tlo)[3:5].max() == 0 or (thi - tlo).max() < deep:
+        raise AssertionError("edge input lost its empty or its deep tile")
+    dst = np.full(W, -1, np.int32)
+    cand = np.sort(rng.choice(real_w, real_w // 3, replace=False))
+    dst[cand] = np.arange(len(cand), dtype=np.int32)
+
+    def placed(arr):
+        flat = torch.from_numpy(np.ascontiguousarray(arr)).reshape(-1)
+        if not shift:
+            return flat.reshape(arr.shape)
+        big = torch.zeros(flat.numel() + shift + 3, dtype=flat.dtype)
+        big[shift : shift + flat.numel()] = flat
+        return big[shift : shift + flat.numel()].view(arr.shape)
+
+    args = [placed(codes), placed(hp.row_spos(f_pos, parity)),
+            torch.from_numpy(tlo), torch.from_numpy(thi),
+            torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8))]
+    kw = dict(ntiles=ntiles, dst=torch.from_numpy(dst), out_width=len(cand))
+    if qual_mode:
+        kw.update(qual=placed(qual), min_phred=5)
+    return args, kw
+
+
+def _to_cuda(t, shift):
+    """A CUDA copy of ``t`` that keeps its placement ``shift`` elements
+    into a larger buffer (see ``pileup4_edge_inputs``)."""
+    if not shift:
+        return t.cuda()
+    big = t.new_zeros(t.numel() + shift + 3).cuda()
+    big[shift : shift + t.numel()] = t.reshape(-1).cuda()
+    return big[shift : shift + t.numel()].view(t.shape)
+
+
+def pileup4_edge_cases(rng):
+    """Kernel == plain version on the staging's edge cases, both layouts:
+    an odd and an even read length, staging chunks of 8 rows and the
+    default (the deep tile then needs several chunks too), arrays that
+    start 5 bytes / 3 words off 16-byte alignment, tiles without rows, and
+    a last tile whose tail has no output slot."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import pileup4 as p4
+
+    for qual_mode in (False, True):
+        for L, shift, chunk in ((151, 0, 8), (151, 5, None), (150, 3, 8),
+                                (36, 5, None)):
+            args, kw = pileup4_edge_inputs(rng, L=L, qual_mode=qual_mode,
+                                           shift=shift)
+            d_args = [_to_cuda(a, shift if i < 2 else 0)
+                      for i, a in enumerate(args)]
+            d_kw = dict(kw, dst=kw["dst"].cuda())
+            if qual_mode:
+                d_kw["qual"] = _to_cuda(kw["qual"], shift)
+            if shift and (d_args[0].data_ptr() % 16 == 0
+                          or d_args[1].data_ptr() % 16 == 0):
+                raise AssertionError("edge input is 16-byte aligned")
+            for nch, sat in ((4, 16), (2, 8), (4, 32)):
+                k = dict(d_kw, nch=nch, sat_bits=sat)
+                got, govf = p4.pileup4_tiles(*d_args, chunk_rows=chunk, **k)
+                want, wovf = p4.pileup4_tiles_reference(*d_args, **k)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8)) \
+                        or int(govf.item()) != int(wovf.item()):
+                    raise AssertionError(
+                        f"pileup4 edge case L {L} shift {shift} chunk "
+                        f"{chunk} qual {qual_mode} nch{nch} u{sat}: kernel "
+                        "!= plain version")
+            print(f"  pileup4 {'qual' if qual_mode else 'nq'} edge case: L "
+                  f"{L}, arrays {shift} off alignment, chunk rows "
+                  f"{chunk or 'default'}, {len(args[1])} rows, empty tiles, "
+                  f"partial last tile: equal (sum "
+                  f"{int(got.view(torch.uint8).long().sum())})", flush=True)
+
+
 def arbitrate_vs_plain(rng, *, P, L, span):
     """P mate pairs over ``span`` columns, position-sorted as the v2
     program sorts them, mates 0-329 apart (block shifts 0-2 and beyond),
     one pair in nine on different strand parities, quals 0-255. Kernel and
-    plain version rewrite copies of the same quals. Returns (max_abs_err,
-    kernel ms, plain ms)."""
+    plain version rewrite copies of the same quals. Returns the times of
+    ``timed`` plus err, bytes and ops: bytes = the tables, both mates' codes and quals
+    of the eligible pairs (block shift 0-2) read once and the quals this
+    input rewrites written once; ops = four per base of an eligible
+    pair."""
     import torch
 
     from methyldackel_tpu_torch.ops import arbitrate as ar
@@ -376,12 +647,15 @@ def arbitrate_vs_plain(rng, *, P, L, span):
     if err != 0 or changed == 0:
         raise AssertionError("arbitrate: kernel != plain version")
     q = q0.clone()  # in place: both rewrite the same bytes each call
-    k_ms, p_ms = turns_ms(
+    res = timed(
+        "arbitrate", "arbitrate_kernel",
         lambda: ar.arbitrate(s_t, q, shp_t, pa_t, pb_t, code_t),
         lambda: ar.arbitrate_reference(s_t, q, shp_t, pa_t, pb_t, code_t))
-    print(f"  arbitrate: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median "
-          f"of {REPS}; {card_line()})", flush=True)
-    return err, k_ms, p_ms
+    eligible = int((code < 3).sum())
+    res.update(err=err, ops=4 * eligible * L,
+               bytes=nbytes_of(shp_t, pa_t, pb_t, code_t)
+               + eligible * 2 * L * 2 + changed)
+    return res
 
 
 # ---------------------------------------------------- phases 3-4: the CLI
@@ -410,12 +684,57 @@ def run_port(args, cwd, env):
     return dt, backend
 
 
+def busy_share(name, args, cwd, env):
+    """One more run of the port's extract under torch.profiler (device
+    activities only) with the engine's stage timers on: prints the device's
+    busy time (the union of its kernel and copy intervals) beside the wall
+    time, the largest device items by name, and the stage sums (the
+    ``[mdtpu stats]`` block on stderr). Profiled runs are slower than plain
+    ones, so this run gives no reads/s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from methyldackel_tpu_torch.utils import profiling
+
+    profiling.STATS.__init__()
+    profiling.STATS.enabled = True
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall, _ = run_port(args, cwd, env)
+    finally:
+        profiling.STATS.enabled = False
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        tot = by_name.setdefault(e.name[:60], [0.0, 0])
+        tot[0] += e.time_range.elapsed_us() / 1e3
+        tot[1] += 1
+    spans.sort()
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"[3] {name}: device busy {busy_us / 1e3:.3f} ms of a {wall:.3f} s "
+          f"profiled run = {busy_us / 1e4 / wall:.4f}% ({len(spans)} device "
+          "items; largest: "
+          + "; ".join(f"{nm} {ms:.3f} ms ({cnt})" for nm, (ms, cnt) in top)
+          + f") ({card_line()})", flush=True)
+
+
 def run_host(args, cwd):
-    """The reference CLI's exact host engine, in its own process."""
+    """The port's exact host engine (MDTPU_ENGINE=host), in its own
+    process."""
     env = dict(os.environ, MDTPU_ENGINE="host",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "methyldackel_tpu.cli",
+    res = subprocess.run([sys.executable, "-m", "methyldackel_tpu_torch.cli",
                           "extract", *args], cwd=cwd, env=env,
                          capture_output=True, text=True)
     dt = time.perf_counter() - t0
@@ -499,14 +818,27 @@ def build_all(build, sources):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
+                    "earlier commit whose pileup4.cu is timed in turns with "
+                    "this one in phase 2")
+    ap.add_argument("--kernels-only", action="store_true", help="stop "
+                    "after phase 2 with exit code 3 and no result line")
+    ap.add_argument("--busy", action="store_true", help="after each main "
+                    "path, run it once more under torch.profiler and with "
+                    "the stage timers on, and print the device's busy share")
+    ap.add_argument("--ptxas", action="store_true", help="build with "
+                    "-Xptxas -v and print what the compiler says")
+    opts = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)\n")
         return 1
-    # the port and its host modules; none of them may pull in jax
-    from methyldackel_tpu.io import native
+    # the port and its own host stack; none of it may pull in jax or the
+    # JAX package
+    from methyldackel_tpu_torch.io import native
     from methyldackel_tpu_torch.ops import arbitrate as ar
     from methyldackel_tpu_torch.ops import build
     from methyldackel_tpu_torch.ops import pileup as pk
@@ -531,11 +863,14 @@ def main() -> int:
           f"installed: {importlib.util.find_spec('triton') is not None}; "
           f"native host library: {native.available()}", flush=True)
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from source
+    if opts.ptxas:
+        build.NVCC_FLAGS += ["-Xptxas", "-v"]
     t0 = time.perf_counter()
     secs = build_all(build, [pk.SOURCE, p4.SOURCE, ar.SOURCE])
     print(f"[1] built {', '.join(f'{k} in {v:.2f} s' for k, v in secs.items())}"
           f" for sm_90a, in parallel: {time.perf_counter() - t0:.2f} s "
           f"({build.BUILD_DIR})", flush=True)
+    parent_fn = parent_pileup4(opts.parent) if opts.parent else None
 
     # ---- phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -548,7 +883,7 @@ def main() -> int:
     cand_in = group_inputs(rng, Kw=4, pitch=P, span=cslot, lo=0,
                            n_per=reads_per_window, Lq=16, LP=128,
                            ctx_slot=(P, cslot))
-    e1, k1, p1 = kernel_vs_plain("candidate space", cand_in, compact=False)
+    r_cand = kernel_vs_plain("candidate space", cand_in, compact=False)
     del cand_in
     print("[2] pileup2: window-space group program (Kw=4, S=1000960, L=150)",
           flush=True)
@@ -556,26 +891,42 @@ def main() -> int:
     win_in = group_inputs(rng, Kw=4, pitch=S, span=wpad1, lo=-149,
                           n_per=reads_per_window, Lq=38, LP=256,
                           ctx_slot=(S, wpad1))
-    e2, k2, p2 = kernel_vs_plain("window space", win_in, compact=True)
+    r_win = kernel_vs_plain("window space", win_in, compact=True)
     del win_in
     overflow_case(rng)
     print("[2] pileup4 nq: the --minOppositeDepth single-window program "
           "(1 Mb, 240k reads of 150 bp)", flush=True)
     inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
                         qual_mode=False)
-    e_nq, k_nq, p_nq = pileup4_vs_plain("pileup4 nq", inp, timed_nch=4)
+    r_nq = pileup4_vs_plain("pileup4 nq", inp, 4, parent_fn)
     print("[2] pileup4 qual: the v2 single-window program (1 Mb, 240k reads "
           "of 150 bp)", flush=True)
     inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
                         qual_mode=True)
-    e_q, k_q, p_q = pileup4_vs_plain("pileup4 qual", inp, timed_nch=2)
+    r_q = pileup4_vs_plain("pileup4 qual", inp, 2, parent_fn)
     del inp
     pileup4_overflow_case()
+    pileup4_edge_cases(rng)
     print("[2] arbitrate: the v2 program's pairs (1 Mb, 120k pairs of "
           "150 bp)", flush=True)
-    e_ar, k_ar, p_ar = arbitrate_vs_plain(rng, P=reads_per_window // 2,
-                                          L=150, span=wpad1)
+    r_ar = arbitrate_vs_plain(rng, P=reads_per_window // 2, L=150,
+                              span=wpad1)
     torch.cuda.empty_cache()
+    r_cand["err"] = max(r_cand["err"], r_win["err"])
+    results = {"pileup2": r_cand, "pileup4_nq": r_nq, "pileup4_qual": r_q,
+               "arbitrate": r_ar}
+    for key, r in results.items():
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes"], r["ops"])
+        print(f"[2] {key}: {r['ms']:.4f} ms against a bound of "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {r['bytes']} "
+              f"bytes at 3.35 TB/s; {r['ops']} integer operations at 1,979 "
+              f"TOP/s), share of bound {r['bound_ms'] / r['ms']:.3f}"
+              + (f"; parent commit's kernel {r['parent_ms']:.4f} ms"
+                 if "parent_ms" in r else "")
+              + f"; no library call computes it ({card})", flush=True)
+    if opts.kernels_only:
+        print("chip_smoke: --kernels-only, stopping after phase 2")
+        return 3
 
     # ---- phase 3: the main paths end to end
     shutil.rmtree(WORK, ignore_errors=True)
@@ -590,9 +941,10 @@ def main() -> int:
     )
     launches = {}
     try:
-        from methyldackel_tpu.io.bai import build_bai
-        from methyldackel_tpu.io.bam import BamFile
-        from methyldackel_tpu.utils.simulate import write_synthetic_input
+        from methyldackel_tpu_torch.io.bai import build_bai
+        from methyldackel_tpu_torch.io.bam import BamFile
+        from methyldackel_tpu_torch.utils.simulate import \
+            write_synthetic_input
 
         t0 = time.perf_counter()
         fa, bam = write_synthetic_input(WORK, 1_000_000, 150, 1 << 23, seed=0)
@@ -629,8 +981,8 @@ def main() -> int:
                   f"launches {counts}, host-routed windows "
                   f"{backend.host_routed}); host engine in process "
                   f"{hrate[0]:,.0f} and {hrate[1]:,.0f} reads/s "
-                  f"({t_host[0][0]:.2f} s, {t_host[1][0]:.2f} s); reference "
-                  f"CLI process (MDTPU_ENGINE=host) {dt_ref:.2f} s = "
+                  f"({t_host[0][0]:.2f} s, {t_host[1][0]:.2f} s); the port's "
+                  f"CLI process with MDTPU_ENGINE=host {dt_ref:.2f} s = "
                   f"{2e6 / dt_ref:,.0f} reads/s; out_CpG.bedGraph "
                   f"byte-identical, {calls[name]} CpG lines ({card})",
                   flush=True)
@@ -639,6 +991,8 @@ def main() -> int:
                 raise AssertionError(f"{name} did not run on the card")
             for kn in kernels:
                 launches[kn] = counts[kn]
+            if opts.busy:
+                busy_share(name, args, dirs[0], cuda_env)
         excluded = calls[paths[0][0]] - calls[paths[1][0]]
         print(f"[3] variant exclusion: {excluded} CpG lines of "
               f"{calls[paths[0][0]]} excluded against the default run",
@@ -702,29 +1056,30 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print(f"[5] kernel ms (kernel / plain): pileup2 candidate space "
-          f"{k1:.4f} / {p1:.4f}, window space {k2:.4f} / {p2:.4f}; pileup4 "
-          f"nq {k_nq:.4f} / {p_nq:.4f}; pileup4 qual {k_q:.4f} / {p_q:.4f}; "
-          f"arbitrate {k_ar:.4f} / {p_ar:.4f} (the JSON line reports "
-          f"pileup2's candidate-space program, the default path's); whole "
-          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("[5] kernel ms (device, cold L2 / wrapper call / plain version): "
+          + "; ".join(f"{nm} {r['ms']:.4f} / {r['wrapper_ms']:.4f} / "
+                      f"{r['plain_ms']:.4f}" for nm, r in (
+                          ("pileup2 candidate space", r_cand),
+                          ("pileup2 window space", r_win),
+                          ("pileup4 nq", r_nq), ("pileup4 qual", r_q),
+                          ("arbitrate", r_ar)))
+          + " (the JSON line reports pileup2's candidate-space program, the "
+          f"default path's); whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     leaked = sorted(m for m in sys.modules
-                    if m == "jax" or m.startswith("jax.")
-                    or m in ("methyldackel_tpu.parallel.device",
-                             "methyldackel_tpu.ops.pileup_pallas"))
+                    if m.split(".")[0] in ("jax", "jaxlib",
+                                           "methyldackel_tpu"))
     if leaked:
-        raise AssertionError(f"jax code was imported: {leaked}")
+        raise AssertionError(f"jax or the JAX package was imported: {leaked}")
 
     csrc = "methyldackel_tpu_torch/csrc/"
     kernels = [
-        ("pileup2_tiles", "pileup2.cu", "pileup_pallas.py:279", "pileup2",
-         max(e1, e2), k1, p1),
-        ("pileup4_tiles_nq", "pileup4.cu", "pileup_pallas.py:171",
-         "pileup4_nq", e_nq, k_nq, p_nq),
-        ("pileup4_tiles_qual", "pileup4.cu", "pileup_pallas.py:66",
-         "pileup4_qual", e_q, k_q, p_q),
-        ("arbitrate", "arbitrate.cu", "arbitrate_pallas.py:28", "arbitrate",
-         e_ar, k_ar, p_ar),
+        ("pileup2_tiles", "pileup2.cu", "pileup_pallas.py:354", "pileup2"),
+        ("pileup4_tiles_nq", "pileup4.cu", "pileup_pallas.py:247",
+         "pileup4_nq"),
+        ("pileup4_tiles_qual", "pileup4.cu", "pileup_pallas.py:164",
+         "pileup4_qual"),
+        ("arbitrate", "arbitrate.cu", "arbitrate_pallas.py:100", "arbitrate"),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -732,10 +1087,18 @@ def main() -> int:
         "source": csrc + source,
         "replaces": "methyldackel_tpu/ops/" + replaces,
         "launches": launches[key],
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    } for name, source, replaces, key, err, ms, plain_ms in kernels]}))
+        "max_abs_err": results[key]["err"],
+        "ms": results[key]["ms"],
+        "plain_ms": results[key]["plain_ms"],
+        "bound_ms": results[key]["bound_ms"],
+        "bound_by": results[key]["bound_by"],
+        "library_ms": None,
+        "bytes": results[key]["bytes"],
+        "ms_warm_l2": results[key]["ms_warm"],
+        "wrapper_ms": results[key]["wrapper_ms"],
+        "timed_by": results[key]["timed_by"],
+        "share_of_bound": results[key]["bound_ms"] / results[key]["ms"],
+    } for name, source, replaces, key in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,17 +13,23 @@
 // shift, counts_to_channels (extract.c:420-441), the candidate compaction
 // and the narrowing cast with its overflow flag.
 //
-// Inputs:
+// Inputs (the TPU layout's phase byte, 128-column offset groups and K are
+// gone from the interface: rows carry their start column):
 //   codes [Nb, row_bytes] u8  nq: code 2j in the low nibble of byte j,
 //                         2j+1 in the high one (Lc = 2 * row_bytes codes);
 //                         qual: one code per byte (Lc = row_bytes).
 //                         Codes A=1 C=2 G=4 T=8 N=15; 0 never counts (a
 //                         gated base, or no base: the fast path holds no '=')
 //   qual  [Nb, row_bytes] u8  qual mode only (null in nq mode)
-//   shp   [Nb] u8         low 7 bits: the row's phase pos % 128; bit 7: parity
-//   srtk, cntk [ntiles*K] i32  first row and row count of offset group k of
-//                         tile t; every row of the group starts at window
-//                         column t*T - LP + 128*k + phase
+//   spos  [Nb] i32        2 * start + parity: the window column of the row's
+//                         first code (may be negative) and its strand parity.
+//                         PRECONDITION, checked by the host code that builds
+//                         the tables (host_prep.tile_rows): starts do not
+//                         decrease with the row index.
+//   tlo, thi [ntiles] i32 rows [tlo[t], thi[t]) are the rows that can reach
+//                         tile t: t*T - Lc < start < (t+1)*T. Consecutive
+//                         because of the precondition, so their bytes in
+//                         codes, qual and spos are one contiguous range.
 //   isc, isg [W/8] u8     np.packbits (MSB first) bitmaps: column is a
 //                         reference C / G (after the window/reference shift)
 //   dst   [W] i32         optional compaction map: output slot of a column,
@@ -35,20 +41,49 @@
 // Design. The TPU kernel phase-aligned every row into a [Nb, LP2] array in
 // HBM, summed 12 per-parity base counts per column into a VMEM accumulator
 // tile by tile, and left the reference-dependent channel math to XLA. Here
-// one block owns one tile of T = 512 output columns, one thread per column,
-// as in pileup2.cu: each thread reads code (x + LP - 128k - phase) of each
-// row of the K groups that reach its tile straight from the unshifted
-// arrays, so no shifted array exists. A thread knows its column's reference
-// class (C, G or neither) before the row loop, so the 12 counts collapse to
-// the 4 channels it stores, kept in registers: a base on the calling strand
-// of a C/G column feeds meth/unmeth, any other base feeds the opposite depth
-// and, unless it is N or the calling strand's methylated base, the variant
-// count. No block shares a column with another (no atomics), and there is no
-// GMAX cap: a group of any size is one loop.
+// one block owns one tile of T = 512 output columns, one thread per column
+// (no block shares a column with another: no atomics, bit-exact).
+//   1. Stage, then count. The block copies its tile's row range of codes
+//      (and qual) and spos into shared memory with cp.async in 16-byte
+//      pieces spread over all 512 threads, in chunks of `chunk_rows` rows and
+//      two buffers: the copy of chunk i+1 is in flight while chunk i is
+//      counted. A range starts at any byte, so the copy takes the 16-byte
+//      aligned superset and keeps the offset; pieces that would cross either
+//      end of the array are copied byte by byte instead. There is no row
+//      cap: a range of any size is a loop over chunks, and a tile without
+//      rows copies nothing and still writes its zeros.
+//   2. Only the rows that reach the column. Starts do not decrease, so the
+//      rows of a chunk that cover column x (x - Lc < start <= x) are one run;
+//      each thread finds it by two binary searches over the staged spos and
+//      loops over that run alone. A warp's 32 columns read nearly the same
+//      spos words and 16 (nq) or 32 (qual) consecutive bytes of a staged
+//      row. (Tried and slower on the same card, 0.078 against 0.055 ms in
+//      the nq layout: one run per warp walked in step, each lane skipping
+//      the rows that miss its column.)
+//   3. A thread knows its column's reference class (C, G or neither) before
+//      the row loop, so the 12 counts collapse to the 4 channels it stores:
+//      a base on the calling strand of a C/G column feeds meth/unmeth, any
+//      other base feeds the opposite depth and, unless it is N or the
+//      calling strand's methylated base, the variant count. Which of the
+//      four a base feeds is a 4-bit entry of a table indexed by its code,
+//      one 64-bit word per (class, parity) from constant memory, held in
+//      registers; the four flags are spread to the four bytes of one
+//      packed accumulator with a multiply and a mask, and the bytes are
+//      added to the four 32-bit counts after every chunk (a chunk has at
+//      most 248 rows, so no byte passes 255).
 //
-// What bounds it: memory. There is no tensor-core work; every row is read by
-// about (T + LP2) / T tiles and by all warps of its tile (through L1).
-// Staging a group's rows in shared memory is the next step for speed.
+// What bounds it: bytes by the roofline (integer byte work, no tensor-core
+// product; every input byte once and every output byte once is 7 µs (nq) or
+// 23 µs (qual) at the 1 Mb window shape), but the time, 55 µs and about
+// 80 µs there on an NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py),
+// goes to the instruction rate of the count loop: about
+// two dozen instructions per covered base (the spos word, the code byte and
+// in the qual layout the qual byte from shared memory, the nibble and table
+// shifts, the spread and the add) on all four schedulers of every SM, with
+// 4 blocks of 512 threads resident (32 registers a thread, 2 x 20 KB (nq) or
+// 2 x 24 KB (qual) of shared memory a block). Each row is staged by about
+// (T + Lc) / T = 1.3 tiles, and 1,954 tiles fill the card's 528 block slots
+// 3.7 times, so the last wave runs part empty.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,16 +91,110 @@ namespace {
 
 constexpr int kT = 512;
 constexpr int kA = 1, kC = 2, kG = 4, kTh = 8, kN = 15;
+// default shared-memory budget of one staging buffer (two per block)
+constexpr int kBufBudget = 24 * 1024;
+constexpr int kMaxSmem = 227 * 1024;
+// most rows of a staging chunk: the per-chunk counts are bytes of one word
+constexpr int kMaxChunk = 248;
+
+// What one base adds, as bits: 1 meth, 2 unmeth, 4 opposite-strand depth,
+// 8 opposite-strand variant. cls: 0 reference C (odd rows call), 1 reference
+// G (even rows call), 2 neither.
+constexpr uint32_t base_flags(int cls, int odd, int code) {
+  if (code == 0) return 0;
+  const bool call = (cls == 0 && odd) || (cls == 1 && !odd);
+  if (call) {
+    return (code == (odd ? kC : kG) ? 1u : 0u) |
+           (code == (odd ? kTh : kA) ? 2u : 0u);
+  }
+  return 4u | ((code != kN && code != (odd ? kG : kC)) ? 8u : 0u);
+}
+
+// The flags of all 16 codes, four bits each, code 0 in the low nibble.
+constexpr uint64_t flag_table(int cls, int odd) {
+  uint64_t t = 0;
+  for (int code = 0; code < 16; ++code) {
+    t |= static_cast<uint64_t>(base_flags(cls, odd, code)) << (4 * code);
+  }
+  return t;
+}
+
+__constant__ uint64_t kFlagTable[3][2] = {
+    {flag_table(0, 0), flag_table(0, 1)},
+    {flag_table(1, 0), flag_table(1, 1)},
+    {flag_table(2, 0), flag_table(2, 1)}};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Offset in a staging region of the byte at global address a.
+__device__ __forceinline__ int stage_offset(const uint8_t* a) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+}
+
+// Stage bytes [begin, end) of the array base[0, total) into the 16-byte
+// aligned region dst, byte `begin` landing at dst[stage_offset(base+begin)]:
+// the threads of the block share the 16-byte cp.async pieces of the aligned
+// superset; a piece that is not wholly inside the array is copied byte by
+// byte (only the wanted bytes), so nothing outside the array is read.
+__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* base,
+                                      size_t total, size_t begin, size_t end) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(base);
+  const uintptr_t hi = lo + total;
+  const uintptr_t a = lo + begin;
+  const uintptr_t e = lo + end;
+  const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+  const int pieces = static_cast<int>((e - a0 + 15) >> 4);
+  for (int i = threadIdx.x; i < pieces; i += kT) {
+    const uintptr_t g = a0 + 16 * static_cast<uintptr_t>(i);
+    if (g >= lo && g + 16 <= hi) {
+      cp_async16(dst + 16 * i, reinterpret_cast<const void*>(g));
+    } else {
+      for (int b = 0; b < 16; ++b) {
+        if (g + b >= a && g + b < e) {
+          dst[16 * i + b] = *reinterpret_cast<const uint8_t*>(g + b);
+        }
+      }
+    }
+  }
+}
+
+// First j in [0, n) with st[j] > v (n when there is none); st ascending.
+__device__ __forceinline__ int first_above(const int32_t* st, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (st[mid] > v) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
 
 template <bool kQual, typename OutT>
-__global__ void __launch_bounds__(kT) pileup4_kernel(
+__global__ void __launch_bounds__(kT, 4) pileup4_kernel(
     const uint8_t* __restrict__ codes, const uint8_t* __restrict__ qual,
-    const uint8_t* __restrict__ shp, const int32_t* __restrict__ srtk,
-    const int32_t* __restrict__ cntk, const uint8_t* __restrict__ isc,
+    const int32_t* __restrict__ spos, const int32_t* __restrict__ tlo,
+    const int32_t* __restrict__ thi, const uint8_t* __restrict__ isc,
     const uint8_t* __restrict__ isg, const int32_t* __restrict__ dst,
-    OutT* __restrict__ out, int32_t* __restrict__ overflow, int K, int LP,
-    int Lc, int row_bytes, int W, int out_stride, int nch, int min_phred,
-    uint32_t cap) {
+    OutT* __restrict__ out, int32_t* __restrict__ overflow, int Nb, int Lc,
+    int row_bytes, int chunk_rows, int code_cap, int spos_cap, int W,
+    int out_stride, int nch, int min_phred, uint32_t cap) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int t = blockIdx.x;
   const int x = threadIdx.x;
   const int col = t * kT + x;
@@ -78,37 +207,77 @@ __global__ void __launch_bounds__(kT) pileup4_kernel(
       cls = 1;
     }
   }
+  const uint64_t tab_even = kFlagTable[cls][0];
+  const uint64_t tab_odd = kFlagTable[cls][1];
+
+  const int r0 = tlo[t];
+  const int r1 = thi[t];
+  const int nchunk = (r1 - r0 + chunk_rows - 1) / chunk_rows;
+  const int buf_bytes = code_cap * (kQual ? 2 : 1) + spos_cap;
+  const size_t code_total = static_cast<size_t>(Nb) * row_bytes;
+  const uint8_t* spos_b = reinterpret_cast<const uint8_t*>(spos);
+
+  auto stage_chunk = [&](int c) {
+    const int ra = r0 + c * chunk_rows;
+    const int rb = min(ra + chunk_rows, r1);
+    uint8_t* buf = smem + (c & 1) * buf_bytes;
+    const size_t b0 = static_cast<size_t>(ra) * row_bytes;
+    const size_t b1 = static_cast<size_t>(rb) * row_bytes;
+    stage(buf, codes, code_total, b0, b1);
+    if (kQual) stage(buf + code_cap, qual, code_total, b0, b1);
+    stage(buf + code_cap * (kQual ? 2 : 1), spos_b,
+          static_cast<size_t>(Nb) * 4, static_cast<size_t>(ra) * 4,
+          static_cast<size_t>(rb) * 4);
+    cp_async_commit();
+  };
+
   uint32_t meth = 0, unmeth = 0, opp = 0, var = 0;
-  for (int k = 0; k < K; ++k) {
-    const int g = t * K + k;
-    const int r0 = srtk[g];
-    const int r1 = r0 + cntk[g];
-    const int rel = x + LP - 128 * k;  // code index = rel - phase
-    for (int r = r0; r < r1; ++r) {
-      const int s = shp[r];
-      const int idx = rel - (s & 127);
-      if (static_cast<unsigned>(idx) >= static_cast<unsigned>(Lc)) continue;
-      const size_t row = static_cast<size_t>(r) * row_bytes;
-      int code;
-      if (kQual) {
-        code = codes[row + idx] & 15;
-        if (code == 0 || qual[row + idx] < min_phred) continue;
-      } else {
-        code = (codes[row + (idx >> 1)] >> ((idx & 1) * 4)) & 15;
-        if (code == 0) continue;
-      }
-      const bool odd = (s & 128) != 0;
-      if (cls == 0 && odd) {
-        meth += code == kC;
-        unmeth += code == kTh;
-      } else if (cls == 1 && !odd) {
-        meth += code == kG;
-        unmeth += code == kA;
-      } else {
-        opp += 1;
-        var += code != kN && code != (odd ? kG : kC);
-      }
+  if (nchunk > 0) stage_chunk(0);
+  for (int c = 0; c < nchunk; ++c) {
+    if (c + 1 < nchunk) {
+      stage_chunk(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // chunk c, by every thread's copies, is in its buffer
+    const int ra = r0 + c * chunk_rows;
+    const int n = min(chunk_rows, r1 - ra);
+    const uint8_t* buf = smem + (c & 1) * buf_bytes;
+    const size_t b0 = static_cast<size_t>(ra) * row_bytes;
+    const uint8_t* cbuf = buf + stage_offset(codes + b0);
+    const uint8_t* qbuf = kQual ? buf + code_cap + stage_offset(qual + b0)
+                                : nullptr;
+    const int32_t* st = reinterpret_cast<const int32_t*>(
+        buf + code_cap * (kQual ? 2 : 1) + stage_offset(spos_b + 4 * ra));
+    if (col < W) {
+      // rows with col - Lc < start <= col; spos = 2 * start + parity
+      const int ja = first_above(st, n, 2 * (col - Lc) + 1);
+      const int jb = ja + first_above(st + ja, n - ja, 2 * col + 1);
+      uint32_t acc = 0;  // four byte counts: meth, unmeth, opp, var
+#pragma unroll 4
+      for (int j = ja; j < jb; ++j) {
+        const int s = st[j];
+        const int idx = col - (s >> 1);
+        uint32_t code;
+        if (kQual) {
+          const int at = j * row_bytes + idx;
+          code = cbuf[at] & 15u;
+          if (qbuf[at] < min_phred) code = 0;
+        } else {
+          code = (cbuf[j * row_bytes + (idx >> 1)] >> ((idx & 1) * 4)) & 15u;
+        }
+        const uint64_t tab = (s & 1) ? tab_odd : tab_even;
+        const uint32_t flags = static_cast<uint32_t>(tab >> (4 * code)) & 15u;
+        // bit i of flags to bit 8 * i
+        acc += (flags * 0x204081u) & 0x01010101u;
+      }
+      meth += acc & 255u;
+      unmeth += (acc >> 8) & 255u;
+      opp += (acc >> 16) & 255u;
+      var += acc >> 24;
+    }
+    __syncthreads();  // the buffer is free for the copy of chunk c + 2
   }
   if (col >= W) return;
   int slot = col;
@@ -128,45 +297,49 @@ __global__ void __launch_bounds__(kT) pileup4_kernel(
   if (over) atomicOr(overflow, 1);
 }
 
+struct Args {
+  const void *codes, *qual, *spos, *tlo, *thi, *isc, *isg, *dst;
+  void *out, *overflow;
+  int ntiles, Nb, Lc, row_bytes, chunk_rows, W, out_stride, nch, min_phred;
+};
+
+inline int round16(int v) { return (v + 15) & ~15; }
+
 template <bool kQual, typename OutT>
-void launch(const void* codes, const void* qual, const void* shp,
-            const void* srtk, const void* cntk, const void* isc,
-            const void* isg, const void* dst, void* out, void* overflow,
-            int ntiles, int K, int LP, int Lc, int row_bytes, int W,
-            int out_stride, int nch, int min_phred, uint32_t cap,
-            cudaStream_t s) {
-  pileup4_kernel<kQual, OutT><<<dim3(ntiles), dim3(kT), 0, s>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(qual),
-      static_cast<const uint8_t*>(shp), static_cast<const int32_t*>(srtk),
-      static_cast<const int32_t*>(cntk), static_cast<const uint8_t*>(isc),
-      static_cast<const uint8_t*>(isg), static_cast<const int32_t*>(dst),
-      static_cast<OutT*>(out), static_cast<int32_t*>(overflow), K, LP, Lc,
-      row_bytes, W, out_stride, nch, min_phred, cap);
+int launch(const Args& a, uint32_t cap, cudaStream_t s) {
+  // a region holds its rows, up to 15 bytes of offset in front and up to
+  // 15 of the last piece behind
+  const int code_cap = round16(a.chunk_rows * a.row_bytes) + 32;
+  const int spos_cap = round16(a.chunk_rows * 4) + 32;
+  const int smem = 2 * (code_cap * (kQual ? 2 : 1) + spos_cap);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = pileup4_kernel<kQual, OutT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  kernel<<<dim3(a.ntiles), dim3(kT), smem, s>>>(
+      static_cast<const uint8_t*>(a.codes),
+      static_cast<const uint8_t*>(a.qual),
+      static_cast<const int32_t*>(a.spos), static_cast<const int32_t*>(a.tlo),
+      static_cast<const int32_t*>(a.thi), static_cast<const uint8_t*>(a.isc),
+      static_cast<const uint8_t*>(a.isg), static_cast<const int32_t*>(a.dst),
+      static_cast<OutT*>(a.out), static_cast<int32_t*>(a.overflow), a.Nb, a.Lc,
+      a.row_bytes, a.chunk_rows, code_cap, spos_cap, a.W, a.out_stride, a.nch,
+      a.min_phred, cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kQual>
-int launch_width(const void* codes, const void* qual, const void* shp,
-                 const void* srtk, const void* cntk, const void* isc,
-                 const void* isg, const void* dst, void* out, void* overflow,
-                 int ntiles, int K, int LP, int Lc, int row_bytes, int W,
-                 int out_stride, int nch, int min_phred, int sat_bits,
-                 cudaStream_t s) {
+int launch_width(const Args& a, int sat_bits, cudaStream_t s) {
   switch (sat_bits) {
     case 8:
-      launch<kQual, uint8_t>(codes, qual, shp, srtk, cntk, isc, isg, dst, out,
-                             overflow, ntiles, K, LP, Lc, row_bytes, W,
-                             out_stride, nch, min_phred, 0xFFu, s);
-      return 0;
+      return launch<kQual, uint8_t>(a, 0xFFu, s);
     case 16:
-      launch<kQual, uint16_t>(codes, qual, shp, srtk, cntk, isc, isg, dst,
-                              out, overflow, ntiles, K, LP, Lc, row_bytes, W,
-                              out_stride, nch, min_phred, 0xFFFFu, s);
-      return 0;
+      return launch<kQual, uint16_t>(a, 0xFFFFu, s);
     case 32:
-      launch<kQual, uint32_t>(codes, qual, shp, srtk, cntk, isc, isg, dst,
-                              out, overflow, ntiles, K, LP, Lc, row_bytes, W,
-                              out_stride, nch, min_phred, 0xFFFFFFFFu, s);
-      return 0;
+      return launch<kQual, uint32_t>(a, 0xFFFFFFFFu, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -174,27 +347,33 @@ int launch_width(const void* codes, const void* qual, const void* shp,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched). A null
-// `qual` selects the nq layout.
+// Launches on `stream` and returns the CUDA error of the launch (0 =
+// launched). A null `qual` selects the nq layout. chunk_rows <= 0 picks the
+// staging chunk from the row width (two buffers of about 24 KB a block); no
+// chunk is longer than 248 rows.
 extern "C" int mdtpu_pileup4(const void* codes, const void* qual,
-                             const void* shp, const void* srtk,
-                             const void* cntk, const void* isc,
+                             const void* spos, const void* tlo,
+                             const void* thi, const void* isc,
                              const void* isg, const void* dst, void* out,
-                             void* overflow, int ntiles, int K, int LP,
-                             int Lc, int row_bytes, int W, int out_stride,
-                             int nch, int min_phred, int sat_bits,
-                             void* stream) {
-  if (nch < 1 || nch > 4) return static_cast<int>(cudaErrorInvalidValue);
+                             void* overflow, int ntiles, int Nb, int Lc,
+                             int row_bytes, int chunk_rows, int W,
+                             int out_stride, int nch, int min_phred,
+                             int sat_bits, void* stream) {
+  if (nch < 1 || nch > 4 || row_bytes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (ntiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (chunk_rows <= 0) {
+    const int per_row = row_bytes * (qual == nullptr ? 1 : 2) + 4;
+    chunk_rows = (kBufBudget / per_row) & ~7;
+    chunk_rows = chunk_rows < 8 ? 8 : chunk_rows;
+  }
+  if (chunk_rows > kMaxChunk) chunk_rows = kMaxChunk;
+  const Args a{codes, qual, spos,   tlo,        thi,        isc,
+               isg,   dst,  out,    overflow,   ntiles,     Nb,
+               Lc,    row_bytes,    chunk_rows, W,          out_stride,
+               nch,   min_phred};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc =
-      qual == nullptr
-          ? launch_width<false>(codes, qual, shp, srtk, cntk, isc, isg, dst,
-                                out, overflow, ntiles, K, LP, Lc, row_bytes,
-                                W, out_stride, nch, min_phred, sat_bits, s)
-          : launch_width<true>(codes, qual, shp, srtk, cntk, isc, isg, dst,
-                               out, overflow, ntiles, K, LP, Lc, row_bytes, W,
-                               out_stride, nch, min_phred, sat_bits, s);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return qual == nullptr ? launch_width<false>(a, sat_bits, s)
+                         : launch_width<true>(a, sat_bits, s);
 }

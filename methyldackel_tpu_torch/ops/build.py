@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +60,8 @@ def build(source: str) -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} (rc={res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    if res.stdout or res.stderr:  # warnings, or -Xptxas -v in NVCC_FLAGS
+        sys.stderr.write(f"nvcc {source}:\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

@@ -22,8 +22,12 @@ compaction and the saturating u8/u16/u32 cast with its overflow flag into
 the store. ``pileup4_tiles_reference`` is the plain PyTorch version; the
 wrapper takes it only for tensors on the CPU.
 
-The geometry (``ntiles`` tiles of ``T = 512`` columns, offset groups
-``srtk``/``cntk``, the ``shp`` phase/parity byte) is ``ops.pileup``'s.
+The window space is ``ntiles`` tiles of ``T = 512`` columns. Rows are sorted
+by their start column and carry it: ``spos`` int32 [Nb] holds ``2 * start +
+parity`` (``host_prep.row_spos``), and ``tlo``/``thi`` int32 [ntiles] the
+row range that can reach each tile (``host_prep.tile_rows``, which checks
+the order). The TPU layout's phase byte, offset groups and ``K``/``LP`` are
+not part of this interface; ``ops.pileup`` (the 2-bit program) keeps them.
 """
 from __future__ import annotations
 
@@ -49,36 +53,39 @@ for _row, _code in enumerate((BASE_A, BASE_C, BASE_G, BASE_T, BASE_N), 1):
     _BASE_ROW[_code] = _row
 
 
-def pileup4_counts_reference(codes: torch.Tensor, shp: torch.Tensor,
-                             srtk: torch.Tensor, cntk: torch.Tensor, *,
-                             ntiles: int, K: int, LP: int, qual=None,
+def pileup4_counts_reference(codes: torch.Tensor, spos: torch.Tensor,
+                             tlo: torch.Tensor, thi: torch.Tensor, *,
+                             ntiles: int, qual=None,
                              min_phred: int = 0) -> torch.Tensor:
     """Plain per-column counters: int32 [12, ntiles*T], per parity (odd
     rows 0-5, even rows 6-11) the total and the counts of A, C, G, T, N —
     rows 0-11 of ``pileup_pallas._pileup_tiles_nq_interpret`` (nq) and of
-    ``_pileup_tiles_interpret`` (qual, whenever min_phred >= 1)."""
+    ``_pileup_tiles_interpret`` (qual, whenever min_phred >= 1). Tile by
+    tile like the kernel: each tile adds the codes of its rows
+    [tlo[t], thi[t]) that fall on its own columns."""
     dev = codes.device
     W = ntiles * T
     Lc = codes.shape[1] * (2 if qual is None else 1)
     counts = torch.zeros(12 * W, dtype=torch.int64, device=dev)
-    cnt = cntk.long()
+    cnt = (thi - tlo).long()
     total = int(cnt.sum())
     if total == 0:
         return counts.view(12, W).int()
-    gid = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), cnt)
+    # one entry per (tile, row) listing; entry e of tile t is row
+    # tlo[t] + (e - first[t])
+    tid = torch.repeat_interleave(torch.arange(ntiles, device=dev), cnt)
     first = torch.cumsum(cnt, 0) - cnt
-    srt = srtk.long()
+    lo_rows = tlo.long()
     j = torch.arange(Lc, device=dev)
     base_row = torch.tensor(_BASE_ROW, dtype=torch.int64, device=dev)
     step = max(1, _CHUNK_ELEMS // Lc)
     for e0 in range(0, total, step):
-        g = gid[e0 : e0 + step]
-        e = torch.arange(e0, e0 + g.numel(), device=dev)
-        r = srt[g] + (e - first[g])
-        t, k = g // K, g % K
-        s = shp[r].long()
+        t = tid[e0 : e0 + step]
+        e = torch.arange(e0, e0 + t.numel(), device=dev)
+        r = lo_rows[t] + (e - first[t])
+        s = spos[r].long()
         lo = t * T
-        col = (lo - LP + 128 * k + (s & 127))[:, None] + j[None, :]
+        col = (s >> 1)[:, None] + j[None, :]
         if qual is None:
             c = (codes[r].long()[:, j >> 1] >> (4 * (j & 1))[None, :]) & 15
             act = c != 0
@@ -86,7 +93,7 @@ def pileup4_counts_reference(codes: torch.Tensor, shp: torch.Tensor,
             c = codes[r].long() & 15
             act = (c != 0) & (qual[r].long() >= min_phred)
         keep = (col >= lo[:, None]) & (col < (lo + T)[:, None]) & act
-        blk = (6 * (1 - (s >> 7)))[:, None].expand_as(col)
+        blk = (6 * (1 - (s & 1)))[:, None].expand_as(col)
         counts += torch.bincount((blk * W + col)[keep], minlength=12 * W)
         br = base_row[c]
         kb = keep & (br >= 0)
@@ -117,16 +124,15 @@ def counts_to_channels(counts: torch.Tensor, isc: torch.Tensor,
     return torch.stack([meth, unmeth, off, var])
 
 
-def pileup4_tiles_reference(codes, shp, srtk, cntk, isc, isg, *, ntiles: int,
-                            K: int, LP: int, nch: int, sat_bits: int,
-                            dst=None, out_width=None, qual=None,
-                            min_phred: int = 0):
+def pileup4_tiles_reference(codes, spos, tlo, thi, isc, isg, *, ntiles: int,
+                            nch: int, sat_bits: int, dst=None,
+                            out_width=None, qual=None, min_phred: int = 0,
+                            chunk_rows=None):
     """Plain PyTorch version of ``pileup4_tiles`` (same arguments, same
-    result)."""
+    result; ``chunk_rows`` only sizes the kernel's staging)."""
     W = ntiles * T
-    counts = pileup4_counts_reference(codes, shp, srtk, cntk, ntiles=ntiles,
-                                      K=K, LP=LP, qual=qual,
-                                      min_phred=min_phred)
+    counts = pileup4_counts_reference(codes, spos, tlo, thi, ntiles=ntiles,
+                                      qual=qual, min_phred=min_phred)
     ch = counts_to_channels(counts, isc, isg, W)[:nch]
     if dst is not None:
         kept = dst >= 0
@@ -146,21 +152,24 @@ def _kernel_fn():
     return fn
 
 
-def pileup4_tiles(codes, shp, srtk, cntk, isc, isg, *, ntiles: int, K: int,
-                  LP: int, nch: int, sat_bits: int, dst=None, out_width=None,
-                  qual=None, min_phred: int = 0):
+def pileup4_tiles(codes, spos, tlo, thi, isc, isg, *, ntiles: int, nch: int,
+                  sat_bits: int, dst=None, out_width=None, qual=None,
+                  min_phred: int = 0, chunk_rows=None):
     """Fused 12-count pileup + ``counts_to_channels`` (+ compaction) +
     narrowing.
 
     codes u8 [Nb, Lh] nibble-packed (nq mode, ``qual`` None) or [Nb, L] with
-    qual u8 [Nb, L] (qual mode); shp u8 [Nb]; srtk/cntk i32 [ntiles*K];
+    qual u8 [Nb, L] (qual mode); spos i32 [Nb] = 2 * start + parity, starts
+    not decreasing; tlo/thi i32 [ntiles] from ``host_prep.tile_rows``;
     isc/isg u8 [ntiles*T/8]; dst (optional) i32 [ntiles*T] mapping a column
     to its output slot or -1. Returns ``(out, overflow)``: out [nch,
     out_width] (default ntiles*T) of uint8/uint16/uint32 for sat_bits
     8/16/32, channels meth, unmeth, opposite depth, opposite variants (the
     first ``nch``), values clamped to the width; overflow int32 [1] set to 1
-    when a value did not fit. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream."""
+    when a value did not fit. ``chunk_rows`` (default: chosen from the row
+    width) is the number of rows the kernel stages at a time. CPU tensors
+    take the plain version; CUDA tensors launch the kernel on the current
+    stream."""
     W = ntiles * T
     if out_width is None:
         if dst is not None:
@@ -170,25 +179,27 @@ def pileup4_tiles(codes, shp, srtk, cntk, isc, isg, *, ntiles: int, K: int,
         raise ValueError(f"sat_bits must be 8, 16 or 32, not {sat_bits}")
     if nch not in (2, 4):
         raise ValueError(f"nch must be 2 or 4, not {nch}")
+    if chunk_rows is not None and chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be at least 1, not {chunk_rows}")
     dev = codes.device
-    if codes.dim() != 2:
+    if codes.dim() != 2 or codes.shape[1] < 1:
         raise ValueError("codes must be [Nb, Lh] or [Nb, L]")
     Nb, width = codes.shape
     _check("codes", codes, torch.uint8, dev, (Nb, width))
     if qual is not None:
         _check("qual", qual, torch.uint8, dev, (Nb, width))
-    _check("shp", shp, torch.uint8, dev, (Nb,))
-    _check("srtk", srtk, torch.int32, dev, (ntiles * K,))
-    _check("cntk", cntk, torch.int32, dev, (ntiles * K,))
+    _check("spos", spos, torch.int32, dev, (Nb,))
+    _check("tlo", tlo, torch.int32, dev, (ntiles,))
+    _check("thi", thi, torch.int32, dev, (ntiles,))
     _check("isc", isc, torch.uint8, dev, (W // 8,))
     _check("isg", isg, torch.uint8, dev, (W // 8,))
     if dst is not None:
         _check("dst", dst, torch.int32, dev, (W,))
     if dev.type == "cpu":
         return pileup4_tiles_reference(
-            codes, shp, srtk, cntk, isc, isg, ntiles=ntiles, K=K, LP=LP,
-            nch=nch, sat_bits=sat_bits, dst=dst, out_width=out_width,
-            qual=qual, min_phred=min_phred)
+            codes, spos, tlo, thi, isc, isg, ntiles=ntiles, nch=nch,
+            sat_bits=sat_bits, dst=dst, out_width=out_width, qual=qual,
+            min_phred=min_phred)
     if dev.type != "cuda":
         raise ValueError(f"pileup4_tiles runs on cpu or cuda, not {dev}")
     nbytes = sat_bits // 8
@@ -199,10 +210,11 @@ def pileup4_tiles(codes, shp, srtk, cntk, isc, isg, *, ntiles: int, K: int,
     Lc = width * (2 if qual is None else 1)
     rc = _kernel_fn()(
         codes.data_ptr(), None if qual is None else qual.data_ptr(),
-        shp.data_ptr(), srtk.data_ptr(), cntk.data_ptr(), isc.data_ptr(),
+        spos.data_ptr(), tlo.data_ptr(), thi.data_ptr(), isc.data_ptr(),
         isg.data_ptr(), None if dst is None else dst.data_ptr(),
-        out.data_ptr(), overflow.data_ptr(), ntiles, K, LP, Lc, width, W,
-        out_width, nch, int(min_phred), sat_bits, stream)
+        out.data_ptr(), overflow.data_ptr(), ntiles, Nb, Lc, width,
+        0 if chunk_rows is None else int(chunk_rows), W, out_width, nch,
+        int(min_phred), sat_bits, stream)
     if rc != 0:
         raise RuntimeError(f"pileup4 kernel launch failed: cudaError {rc}")
     with _COUNT_LOCK:
@@ -211,33 +223,29 @@ def pileup4_tiles(codes, shp, srtk, cntk, isc, isg, *, ntiles: int, K: int,
 
 
 def pileup_window(seq, qual, pos_rel, strand, ref_window, win_offset_rel, W,
-                  min_phred=5, device="cpu"):
+                  min_phred=5, device="cuda"):
     """Qual-gated pileup of gapless reads over one window: uint32 [W, 4],
     equal to ``ops.semantics.pileup_channels``. Counterpart of
     ``pileup_pallas.pileup_pallas`` without its GMAX cap (it never returns
     None). ``seq``/``qual`` u8 [N, L], ``pos_rel`` the window-relative
     starts (any order), ``strand`` the rows' strand codes, the reference's
-    index of window column i being ``i - win_offset_rel``."""
+    index of window column i being ``i - win_offset_rel``. Runs on
+    ``device``: the card by default, the CPU (the plain version) only when
+    asked."""
     from ..parallel import host_prep as hp
 
     seq = np.asarray(seq, np.uint8)
     qual = np.asarray(qual, np.uint8)
     N, L = seq.shape
-    pos_rel = np.asarray(pos_rel, np.int64)
-    LP = hp.round_up(max(L, 128), 128)
     wpad = hp.round_up(W, T)
     ntiles = wpad // T
-    K = (T + LP) // 128
-    aligned = pos_rel - pos_rel % 128
-    order = np.argsort(aligned, kind="stable")
-    srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
-    shp = hp.shp_bytes(pos_rel[order].astype(np.int32),
-                       (np.asarray(strand)[order] & 1).astype(np.uint8))
+    order, spos, tlo, thi = hp.window_tables(
+        pos_rel, np.asarray(strand) & 1, ntiles, L)
     isc, isg = hp.ref_bits(np.asarray(ref_window, np.uint8),
                            int(win_offset_rel), wpad)
     dev = torch.device(device)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-            (seq[order], shp, srtk, cntk, isc, isg, qual[order])]
-    out, _ = pileup4_tiles(*args[:6], ntiles=ntiles, K=K, LP=LP, nch=4,
-                           sat_bits=32, qual=args[6], min_phred=min_phred)
+            (seq[order], spos, tlo, thi, isc, isg, qual[order])]
+    out, _ = pileup4_tiles(*args[:6], ntiles=ntiles, nch=4, sat_bits=32,
+                           qual=args[6], min_phred=min_phred)
     return out.view(torch.uint8).cpu().numpy().view(np.uint32).T[:W].copy()

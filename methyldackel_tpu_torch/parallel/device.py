@@ -13,7 +13,7 @@ Port of the window programs of ``methyldackel_tpu/parallel/device.py``:
   program (``ops.pileup4``, qual mode), for NCH=2 and NCH=4;
 
 and ``make_device_backend`` with the contract
-``methyldackel_tpu.engine.extract.run_extract`` drives: the backend is
+``engine.extract.run_extract`` drives: the backend is
 callable, ``.dispatch(...)`` returns a handle with ``.get()``, and
 ``.dispatch_group(cfg, items, pad_to)`` returns a list of handles.
 
@@ -42,9 +42,8 @@ import threading
 import numpy as np
 import torch
 
-from methyldackel_tpu.engine.extract import compute_window_counters_host
-from methyldackel_tpu.ops import semantics as sem
-
+from ..engine.extract import compute_window_counters_host
+from ..ops import semantics as sem
 from ..ops.arbitrate import arbitrate
 from ..ops.pileup import T, pileup2_tiles
 from ..ops.pileup4 import pileup4_tiles
@@ -105,48 +104,48 @@ def fused_window_pregated2(blob, meta, *, Nb, Lq, ntiles, K, LP, sat_bits,
         out_width=out_width)
 
 
-def fused_window_pregated(blob, meta, *, Nb, Lh, ntiles, K, LP, sat_bits,
-                          dst=None, out_width=None):
+def fused_window_pregated(blob, meta, *, Nb, Lh, ntiles, sat_bits, dst=None,
+                          out_width=None):
     """Counterpart of ``_fused_window_pregated`` (and, with sat_bits=32 and
     no compaction, of ``_fused_window_pregated_wide``): the uploaded
-    ``blob`` u8 = seqpack [Nb*Lh] | shp [Nb] | isc [W/8] | isg [W/8] and
-    ``meta`` i32 = srtk | cntk through one fused kernel launch. Returns
-    ``(out [4, out_width], overflow [1])``."""
-    G = ntiles * K
+    ``blob`` u8 = seqpack [Nb*Lh] | isc [W/8] | isg [W/8] and ``meta`` i32
+    = tlo [ntiles] | thi [ntiles] | spos [Nb] through one fused kernel
+    launch. Returns ``(out [4, out_width], overflow [1])``."""
     nbits = ntiles * T // 8
     a = Nb * Lh
     return pileup4_tiles(
-        blob[:a].view(Nb, Lh), blob[a : a + Nb], meta[:G], meta[G : 2 * G],
-        blob[a + Nb : a + Nb + nbits], blob[a + Nb + nbits : a + Nb + 2 * nbits],
-        ntiles=ntiles, K=K, LP=LP, nch=4, sat_bits=sat_bits, dst=dst,
+        blob[:a].view(Nb, Lh), meta[2 * ntiles : 2 * ntiles + Nb],
+        meta[:ntiles], meta[ntiles : 2 * ntiles],
+        blob[a : a + nbits], blob[a + nbits : a + 2 * nbits],
+        ntiles=ntiles, nch=4, sat_bits=sat_bits, dst=dst,
         out_width=out_width)
 
 
-def fused_fast_window(blob, meta, *, Nb, L, P, ntiles, K, LP, nch, min_phred,
+def fused_fast_window(blob, meta, *, Nb, L, P, ntiles, nch, min_phred,
                       sat_bits, dst=None, out_width=None, arbitrated=False):
     """Counterpart of ``_fused_fast_window`` + the ``_fused_window_packed``
     readback (``_fused_window_wide`` with sat_bits=32, no compaction and
     ``arbitrated``): ``blob`` u8 = seq [Nb*L] | qual [Nb*L] | shp [Nb] |
-    code [P] | isc | isg and ``meta`` i32 = srtk | cntk | pa [P] | pb [P].
-    Unless the quals in ``blob`` are ``arbitrated`` already, the pairs'
-    overlaps are arbitrated in place first (one launch), then the
-    qual-gated pileup runs (one launch). Returns ``(out [nch, out_width],
-    overflow [1])``."""
-    G = ntiles * K
+    code [P] | isc | isg and ``meta`` i32 = tlo [ntiles] | thi [ntiles] |
+    spos [Nb] | pa [P] | pb [P]. Unless the quals in ``blob`` are
+    ``arbitrated`` already, the pairs' overlaps are arbitrated in place
+    first (one launch), then the qual-gated pileup runs (one launch).
+    Returns ``(out [nch, out_width], overflow [1])``."""
     nbits = ntiles * T // 8
     a = Nb * L
     seq = blob[:a].view(Nb, L)
     qual = blob[a : 2 * a].view(Nb, L)
     shp = blob[2 * a : 2 * a + Nb]
     b0 = 2 * a + Nb + P
+    m0 = 2 * ntiles + Nb
     if not arbitrated:
-        arbitrate(seq, qual, shp, meta[2 * G : 2 * G + P],
-                  meta[2 * G + P : 2 * G + 2 * P], blob[2 * a + Nb : b0])
+        arbitrate(seq, qual, shp, meta[m0 : m0 + P], meta[m0 + P : m0 + 2 * P],
+                  blob[2 * a + Nb : b0])
     return pileup4_tiles(
-        seq, shp, meta[:G], meta[G : 2 * G], blob[b0 : b0 + nbits],
-        blob[b0 + nbits : b0 + 2 * nbits], ntiles=ntiles, K=K, LP=LP, nch=nch,
-        sat_bits=sat_bits, dst=dst, out_width=out_width, qual=qual,
-        min_phred=min_phred)
+        seq, meta[2 * ntiles : m0], meta[:ntiles], meta[ntiles : 2 * ntiles],
+        blob[b0 : b0 + nbits], blob[b0 + nbits : b0 + 2 * nbits],
+        ntiles=ntiles, nch=nch, sat_bits=sat_bits, dst=dst,
+        out_width=out_width, qual=qual, min_phred=min_phred)
 
 
 def _fold_hard(out, hard, W_k, wpad1, min_phred, nch):
@@ -409,41 +408,45 @@ class DeviceBackend:
         f_pos = pos[rows] - win_start
         n = len(rows)
         L = seq.shape[1]
-        Lq = (L + 3) // 4
-        L4 = 4 * Lq
-        # one geometry for both packs: L4 bounds both unpacked row widths
-        LP = hp.round_up(max(L4, 128), 128)
-        K = (T + LP) // 128
         wpad = hp.round_up(W_fixed, T)
         ntiles = wpad // T
         min_phred = int(cfg.minPhred)
 
-        aligned = f_pos - (f_pos % 128)
-        order = np.argsort(aligned, kind="stable")
-        srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
-        geom = dict(Nb=n, ntiles=ntiles, K=K, LP=LP)
         if nch == 2:
+            Lq = (L + 3) // 4
+            LP = hp.round_up(max(4 * Lq, 128), 128)
+            K = (T + LP) // 128
+            aligned = f_pos - (f_pos % 128)
+            order = np.argsort(aligned, kind="stable")
+            srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
             seqpack = np.zeros((n, Lq), np.uint8)
             pos_p = np.zeros(n, np.int32)
             parity_p = np.zeros(n, np.uint8)
             if n:
                 hp.pack2_rows(seq, qual, rows[order], pos, st, Lq, win_start,
                               min_phred, out=(seqpack, pos_p, parity_p))
-            program = functools.partial(fused_window_pregated2, Lq=Lq, **geom)
+            program = functools.partial(fused_window_pregated2, Nb=n, Lq=Lq,
+                                        ntiles=ntiles, K=K, LP=LP)
+            blob = [seqpack, hp.shp_bytes(pos_p, parity_p)]
+            meta = [srtk, cntk]
         else:
             Lh = (L + 1) // 2
-            seqpack, pos_p, parity_p = hp.pack4bit_rows(
+            order, spos, tlo, thi = hp.window_tables(f_pos, st[rows] & 1,
+                                                     ntiles, 2 * Lh)
+            seqpack, _pos_p, _parity_p = hp.pack4bit_rows(
                 seq, qual, rows[order], pos, st, Lh, win_start, min_phred)
-            program = functools.partial(fused_window_pregated, Lh=Lh, **geom)
+            program = functools.partial(fused_window_pregated, Nb=n, Lh=Lh,
+                                        ntiles=ntiles)
+            blob = [seqpack]
+            meta = [tlo, thi, spos]
 
         ref_p, isc, isg, cand = self._window_reference(cfg, ref_window,
                                                        woff_rel, wpad)
         hard_k = _hard_rows({"hard": hard, "seq": seq, "qual": qual,
                              "refpos": refpos, "st": st,
                              "win_start": win_start}, ref_p, woff_rel)
-        fetch = self._launch(
-            [seqpack, hp.shp_bytes(pos_p, parity_p), isc, isg], [srtk, cntk],
-            program, nch=nch, W=wpad, cand=cand)
+        fetch = self._launch([*blob, isc, isg], meta, program, nch=nch,
+                             W=wpad, cand=cand)
         return self._finalize_single(fetch, hard_k, W_fixed, wpad, min_phred,
                                      nch)
 
@@ -459,20 +462,20 @@ class DeviceBackend:
         rows = np.nonzero(~hard)[0]
         n = len(rows)
         L = seq.shape[1]
-        LP = hp.round_up(max(L, 128), 128)
-        K = (T + LP) // 128
         wpad = hp.round_up(W_fixed, T)
         ntiles = wpad // T
         min_phred = int(cfg.minPhred)
 
+        # sorted by start column: the pileup's precondition, and with it by
+        # the aligned start the pair table is built on
         f_pos = (pos[rows] - win_start).astype(np.int64)
-        aligned = f_pos - (f_pos % 128)
-        order = np.argsort(aligned, kind="stable")
+        order, spos, tlo, thi = hp.window_tables(f_pos, st[rows] & 1, ntiles,
+                                                 L)
         src = rows[order]
-        al_s = aligned[order]
-        srtk, cntk = hp.group_tables(al_s, ntiles, K, LP)
+        f_pos = f_pos[order]
+        al_s = f_pos - (f_pos % 128)
         st_s = st[src]
-        shp = hp.shp_bytes(f_pos[order].astype(np.int32),
+        shp = hp.shp_bytes(f_pos.astype(np.int32),
                            (st_s & 1).astype(np.uint8))
 
         # pairs of simple rows in the sorted frame (device.py:2613-2623)
@@ -490,15 +493,15 @@ class DeviceBackend:
         hard_k = _hard_rows_v2(seq, qual, refpos, st, hard, a_np, b_np,
                                pair_simple, win_start, ref_p, woff_rel)
         program = functools.partial(
-            fused_fast_window, Nb=n, L=L, P=P, ntiles=ntiles, K=K, LP=LP,
-            nch=nch, min_phred=min_phred)
+            fused_fast_window, Nb=n, L=L, P=P, ntiles=ntiles, nch=nch,
+            min_phred=min_phred)
 
         def wide(b, m):
             # the quals in the blob were arbitrated by the first launch
             return program(b, m, sat_bits=32, arbitrated=True)[0]
 
         fetch = self._launch([seq[src], qual[src], shp, code, isc, isg],
-                             [srtk, cntk, pa, pb], program, nch=nch, W=wpad,
+                             [tlo, thi, spos, pa, pb], program, nch=nch, W=wpad,
                              cand=cand, wide=wide)
         return self._finalize_single(fetch, hard_k, W_fixed, wpad, min_phred,
                                      nch)

@@ -5,8 +5,8 @@ code and imports jax at module scope, so the port carries its own copies of
 the ones the port's window programs run (row classification, mate pairing
 and overlap arbitration, the 2-bit semantic and 4-bit nibble packs, the v2
 pair table, the reference bitmaps, the context candidate mask, the
-offset-group tables) over the same native kernels
-(``methyldackel_tpu.io.native``) and the same numpy fallbacks.
+offset-group tables) over the same native kernels (``io.native``) and the
+same numpy fallbacks.
 
 Not carried over: the shape-bucket high-water floors, the row-count
 padding and the prewarm of the reference, which exist only to bound XLA
@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from methyldackel_tpu.io import native
-from methyldackel_tpu.ops import semantics as sem
+from ..io import native
+from ..ops import semantics as sem
 
 REF_C, REF_G = ord("C"), ord("G")
 T = 512  # window columns per kernel tile
@@ -257,6 +257,44 @@ def group_tables(aligned_sorted, ntiles: int, K: int, LP: int):
     srtk = flat[:, :K].astype(np.int32).reshape(-1)
     cntk = np.diff(flat, axis=1).astype(np.int32).reshape(-1)
     return srtk, cntk
+
+
+def row_spos(start, parity) -> np.ndarray:
+    """One int32 per row of the 4-channel programs: 2 * start + parity, the
+    window column of the row's first code (may be negative) and its strand
+    parity in bit 0."""
+    return (2 * np.asarray(start, np.int64)
+            + (np.asarray(parity, np.int64) & 1)).astype(np.int32)
+
+
+def tile_rows(start_sorted, ntiles: int, Lc: int):
+    """Per-tile row ranges of the 4-channel programs over rows sorted by
+    their start column: rows [tlo[t], thi[t]) are those whose Lc codes can
+    reach tile t, t*T - Lc < start < (t+1)*T. Returns int32 (tlo, thi)
+    [ntiles]. The kernel finds each column's rows by a search that relies
+    on the order, so starts that decrease anywhere raise ValueError."""
+    start = np.asarray(start_sorted, np.int64)
+    if len(start) > 1 and bool((start[1:] < start[:-1]).any()):
+        raise ValueError("rows are not sorted by their start column: the "
+                         "4-channel pileup needs position-sorted rows")
+    lo = np.arange(ntiles, dtype=np.int64) * T
+    tlo = np.searchsorted(start, lo - Lc, side="right").astype(np.int32)
+    thi = np.searchsorted(start, lo + T, side="left").astype(np.int32)
+    return tlo, thi
+
+
+def window_tables(start, parity, ntiles: int, Lc: int):
+    """(order, spos, tlo, thi) of one window's rows for the 4-channel
+    programs: the stable sort by start column (the identity for a
+    coordinate-sorted batch) and the row and tile tables in that order."""
+    start = np.asarray(start, np.int64)
+    if len(start) < 2 or bool((start[1:] >= start[:-1]).all()):
+        order = np.arange(len(start))
+    else:
+        order = np.argsort(start, kind="stable")
+    start = start[order]
+    tlo, thi = tile_rows(start, ntiles, Lc)
+    return order, row_spos(start, np.asarray(parity)[order]), tlo, thi
 
 
 def semantic_codes(seq, qual, st, min_phred: int):

@@ -18,6 +18,8 @@ from methyldackel_tpu_torch.ops import pileup as tpk
 from methyldackel_tpu_torch.ops import pileup4 as tp4
 from methyldackel_tpu_torch.parallel import host_prep as hp
 
+from chip_smoke import _to_cuda, pileup4_edge_inputs
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 512
 
@@ -74,19 +76,16 @@ def test_pileup4_matches_plain_on_card(qual_mode):
     _need_card()
     rng = np.random.default_rng(7 + qual_mode)
     ntiles, n, L = 16, 4000, 150
-    LP = 256
-    K = (T + LP) // 128
     W = ntiles * T
     f_pos = np.sort(rng.integers(-L - 130, W + 40, n))
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, L)
     codes = np.array([0, 1, 2, 4, 8, 15, 3], np.uint8)[
         rng.integers(0, 7, (n, L if qual_mode else (L + 1) // 2))]
     if not qual_mode:
         codes = codes | (np.array([0, 1, 2, 4, 8, 15], np.uint8)[
             rng.integers(0, 6, codes.shape)] << 4)
-    host = (codes, hp.shp_bytes(f_pos.astype(np.int32),
-                                rng.integers(0, 2, n).astype(np.uint8)),
-            srtk, cntk, rng.integers(0, 256, W // 8, dtype=np.uint8),
+    host = (codes, hp.row_spos(f_pos, rng.integers(0, 2, n)), tlo, thi,
+            rng.integers(0, 256, W // 8, dtype=np.uint8),
             rng.integers(0, 256, W // 8, dtype=np.uint8))
     args = [torch.from_numpy(a).cuda() for a in host]
     mode = {}
@@ -100,8 +99,8 @@ def test_pileup4_matches_plain_on_card(qual_mode):
         for sat in (8, 16, 32):
             for extra in ({}, dict(dst=torch.from_numpy(dst).cuda(),
                                    out_width=len(cand))):
-                kw = dict(ntiles=ntiles, K=K, LP=LP, nch=nch, sat_bits=sat,
-                          **extra, **mode)
+                kw = dict(ntiles=ntiles, nch=nch, sat_bits=sat, **extra,
+                          **mode)
                 key = "qual" if qual_mode else "nq"
                 before = tp4.LAUNCHES[key]
                 got, gov = tp4.pileup4_tiles(*args, **kw)
@@ -109,6 +108,55 @@ def test_pileup4_matches_plain_on_card(qual_mode):
                 assert tp4.LAUNCHES[key] == before + 1
                 assert _bytes_equal(got, want)
                 assert int(gov) == int(wov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qual_mode", [False, True])
+@pytest.mark.parametrize("L,shift,chunk", [
+    (151, 0, 8), (151, 5, None), (150, 3, 8), (36, 5, None), (150, 0, 1),
+    (75, 5, 1000)])
+def test_pileup4_staging_edge_cases_on_card(L, shift, chunk, qual_mode):
+    """The staging's edge cases against the kernel: an odd read length,
+    arrays off 16-byte alignment, chunks of 1, 8, the default and more rows
+    than a chunk may hold (a 700-row tile range needs several either way),
+    tiles without rows, a last tile whose tail has no output slot."""
+    _need_card()
+    rng = np.random.default_rng(100 + L + shift)
+    args, kw = pileup4_edge_inputs(rng, L=L, qual_mode=qual_mode,
+                                   shift=shift)
+    d_args = [_to_cuda(a, shift if i < 2 else 0) for i, a in enumerate(args)]
+    d_kw = dict(kw, dst=kw["dst"].cuda())
+    if qual_mode:
+        d_kw["qual"] = _to_cuda(kw["qual"], shift)
+    if shift:
+        assert d_args[0].data_ptr() % 16 and d_args[1].data_ptr() % 16
+    for nch, sat in ((4, 16), (2, 8), (4, 32)):
+        k = dict(d_kw, nch=nch, sat_bits=sat)
+        got, gov = tp4.pileup4_tiles(*d_args, chunk_rows=chunk, **k)
+        want, wov = tp4.pileup4_tiles_reference(*d_args, **k)
+        assert _bytes_equal(got, want) and int(gov) == int(wov)
+        cpu, _ = tp4.pileup4_tiles(*args, **dict(kw, nch=nch, sat_bits=sat))
+        assert torch.equal(got.cpu().view(torch.uint8), cpu.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_pileup_window_on_card_matches_cpu():
+    """pileup_window runs on the card by default and equals its CPU path."""
+    _need_card()
+    rng = np.random.default_rng(12)
+    n, L, W = 600, 101, 3000
+    seq = np.array([1, 2, 4, 8, 15], np.uint8)[rng.integers(0, 5, (n, L))]
+    qual = rng.integers(0, 42, (n, L), dtype=np.uint8)
+    pos = rng.integers(-L, W, n)
+    strand = rng.integers(1, 5, n)
+    ref = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, W + 8)]
+    before = tp4.LAUNCHES["qual"]
+    got = tp4.pileup_window(seq, qual, pos, strand, ref, -3, W, min_phred=7)
+    assert tp4.LAUNCHES["qual"] == before + 1
+    want = tp4.pileup_window(seq, qual, pos, strand, ref, -3, W, min_phred=7,
+                             device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() > 10000
 
 
 @pytest.mark.cuda
@@ -159,7 +207,7 @@ def test_cli_on_card_matches_host_engine(tmp_path, env, extra):
     """`python -m methyldackel_tpu_torch.cli extract` with MDTPU_ENGINE=cuda
     writes the host engine's bytes, on every route the card serves."""
     _need_card()
-    from methyldackel_tpu.utils.simulate import write_synthetic_input
+    from methyldackel_tpu_torch.utils.simulate import write_synthetic_input
 
     fa, bam = write_synthetic_input(str(tmp_path), 4000, 120, 40000, seed=9)
     base = dict(os.environ, MDTPU_STEAL="0",

@@ -12,15 +12,14 @@ from methyldackel_tpu.engine.extract import compute_window_counters_host
 from methyldackel_tpu.ops import semantics as sem
 from methyldackel_tpu.parallel import device as jdev
 from methyldackel_tpu.utils.simulate import random_reference, simulate_batch_fast
-from methyldackel_tpu_torch.parallel.device import make_device_backend
-
 from test_fused_v3 import _mix_batch
 from test_group_dispatch import (GLEN, W, _emit_read_positions,
                                  _host_per_window, _window_items)
+from test_torch_convert import PortBackend
 
 
 def _port(cfg):
-    return make_device_backend(cfg, device="cpu")
+    return PortBackend(cfg)
 
 
 def _mixed_scenario(seed, n_fast=160, n_slow=30):

@@ -16,6 +16,8 @@ from methyldackel_tpu.utils.simulate import random_reference, simulate_batch_fas
 from methyldackel_tpu_torch.ops import pileup4 as p4
 from methyldackel_tpu_torch.parallel import host_prep as hp
 
+from chip_smoke import pileup4_edge_inputs
+
 T = 512
 CODES = np.array([1, 2, 4, 8, 15, 1, 2, 4, 8, 3, 5, 12], np.uint8)
 
@@ -48,6 +50,12 @@ def _geometry(L, W):
 
 def _tables(f_pos, ntiles, K, LP):
     return hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+
+
+def _port_tables(f_pos, parity, ntiles, Lc):
+    """The port's row and tile tables (rows already sorted by start)."""
+    tlo, thi = hp.tile_rows(f_pos, ntiles, Lc)
+    return hp.row_spos(f_pos, parity), tlo, thi
 
 
 def _twin(kind, seq, qual, f_pos, parity, srtk, cntk, ntiles, K, LP,
@@ -93,9 +101,9 @@ def test_nq_counts_match_interpret(seed, n, L, W, min_phred):
     LP, K, ntiles = _geometry(L, W)
     srtk, cntk = _tables(f_pos, ntiles, K, LP)
     want = _twin("nq", gated, qual, f_pos, parity, srtk, cntk, ntiles, K, LP)
-    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
-    got = p4.pileup4_counts_reference(*_t(_nibbles(gated), shp, srtk, cntk),
-                                      ntiles=ntiles, K=K, LP=LP)
+    packed = _nibbles(gated)
+    tabs = _port_tables(f_pos, parity, ntiles, 2 * packed.shape[1])
+    got = p4.pileup4_counts_reference(*_t(packed, *tabs), ntiles=ntiles)
     assert got.dtype == torch.int32 and got.shape == (12, ntiles * T)
     np.testing.assert_array_equal(got.numpy(), want[:12])
     assert not want[12:].any() and want[0].sum() > 1000
@@ -115,10 +123,8 @@ def test_qual_counts_match_interpret(seed, n, L, W, min_phred):
     srtk, cntk = _tables(f_pos, ntiles, K, LP)
     want = _twin("qual", seq, qual, f_pos, parity, srtk, cntk, ntiles, K, LP,
                  min_phred)
-    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
-    s_t, q_t, shp_t, srtk_t, cntk_t = _t(seq, qual, shp, srtk, cntk)
-    got = p4.pileup4_counts_reference(s_t, shp_t, srtk_t, cntk_t,
-                                      ntiles=ntiles, K=K, LP=LP, qual=q_t,
+    s_t, q_t, *tabs = _t(seq, qual, *_port_tables(f_pos, parity, ntiles, L))
+    got = p4.pileup4_counts_reference(s_t, *tabs, ntiles=ntiles, qual=q_t,
                                       min_phred=min_phred).numpy()
     if min_phred >= 1:
         np.testing.assert_array_equal(got, want[:12])
@@ -141,18 +147,18 @@ def test_ragged_rows_property(seed, n, L, tiles, qual_mode):
     seq, qual, f_pos, parity = _rows(seed, n, L, W)
     LP, K, ntiles = _geometry(L, W)
     srtk, cntk = _tables(f_pos, ntiles, K, LP)
-    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
     if qual_mode:
         want = _twin("qual", seq, qual, f_pos, parity, srtk, cntk, ntiles, K,
                      LP, 7)
-        args = _t(seq, shp, srtk, cntk, qual)
-        got = p4.pileup4_counts_reference(*args[:4], ntiles=ntiles, K=K,
-                                          LP=LP, qual=args[4], min_phred=7)
+        args = _t(seq, *_port_tables(f_pos, parity, ntiles, L), qual)
+        got = p4.pileup4_counts_reference(*args[:4], ntiles=ntiles,
+                                          qual=args[4], min_phred=7)
     else:
         want = _twin("nq", seq, qual, f_pos, parity, srtk, cntk, ntiles, K,
                      LP)
-        got = p4.pileup4_counts_reference(*_t(_nibbles(seq), shp, srtk, cntk),
-                                          ntiles=ntiles, K=K, LP=LP)
+        packed = _nibbles(seq)
+        tabs = _port_tables(f_pos, parity, ntiles, 2 * packed.shape[1])
+        got = p4.pileup4_counts_reference(*_t(packed, *tabs), ntiles=ntiles)
     np.testing.assert_array_equal(got.numpy(), want[:12])
 
 
@@ -180,26 +186,24 @@ def _stacked(n=420, qual_mode=False):
     stretch (meth = n at C columns) and a third of them even (opposite
     depth and, with code C on the even strand, no variant)."""
     L = 100
-    LP, K, ntiles = _geometry(L, 3 * T)
+    ntiles = 3
     f_pos = np.full(n, 700, np.int64)
     f_pos[::4] = 640
-    order = np.argsort(f_pos - f_pos % 128, kind="stable")
-    f_pos = f_pos[order]
-    srtk, cntk = _tables(f_pos, ntiles, K, LP)
+    f_pos = np.sort(f_pos)
     parity = np.ones(n, np.uint8)
     parity[::3] = 0
     seq = np.full((n, L), 2, np.uint8)
     seq[::5, ::7] = 8
-    shp = hp.shp_bytes(f_pos.astype(np.int32), parity)
     cb = np.zeros(ntiles * T, bool)
     cb[600:1000] = True
     gb = np.zeros_like(cb)
     gb[1000:1100] = True
     codes = seq if qual_mode else _nibbles(seq)
-    args = _t(codes, shp, srtk, cntk, np.packbits(cb), np.packbits(gb))
+    args = _t(codes, *_port_tables(f_pos, parity, ntiles, L),
+              np.packbits(cb), np.packbits(gb))
     extra = dict(qual=torch.full((n, L), 30, dtype=torch.uint8),
                  min_phred=5) if qual_mode else {}
-    return args, dict(ntiles=ntiles, K=K, LP=LP), extra
+    return args, dict(ntiles=ntiles), extra
 
 
 @pytest.mark.parametrize("qual_mode", [False, True])
@@ -251,7 +255,7 @@ def test_pileup_window_matches_pileup_pallas():
                              batch.pos[order].astype(np.int64), st_arr[order],
                              ref_ascii, 0, W, min_phred=5, interpret=True)
     got = p4.pileup_window(batch.seq, batch.qual, batch.pos, st_arr,
-                           ref_ascii, 0, W, min_phred=5)
+                           ref_ascii, 0, W, min_phred=5, device="cpu")
     assert got.dtype == np.uint32 and got.shape == (W, 4)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, host)
@@ -280,7 +284,7 @@ def test_pileup_window_offsets():
             (batch.pos[idx] - win_start).astype(np.int64), st_arr[idx],
             ref_window, win_offset - win_start, W)
     want = jpk.pileup_pallas(*args, min_phred=5, interpret=True)
-    got = p4.pileup_window(*args, min_phred=5)
+    got = p4.pileup_window(*args, min_phred=5, device="cpu")
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, host)
 
@@ -288,30 +292,155 @@ def test_pileup_window_offsets():
 def test_wrapper_checks_and_counts():
     """The wrapper validates its inputs; on the CPU it runs the plain
     version and counts no kernel launch."""
-    ntiles, K, LP = 2, 5, 128
+    ntiles = 2
     codes = torch.zeros((4, 8), dtype=torch.uint8)
-    shp = torch.zeros(4, dtype=torch.uint8)
-    tab = torch.zeros(ntiles * K, dtype=torch.int32)
+    spos = torch.zeros(4, dtype=torch.int32)
+    tab = torch.zeros(ntiles, dtype=torch.int32)
     bits = torch.zeros(ntiles * T // 8, dtype=torch.uint8)
     before = dict(p4.LAUNCHES)
-    kw = dict(ntiles=ntiles, K=K, LP=LP, nch=4, sat_bits=8)
-    out, ovf = p4.pileup4_tiles(codes, shp, tab, tab, bits, bits, **kw)
-    out_q, _ = p4.pileup4_tiles(codes, shp, tab, tab, bits, bits,
+    kw = dict(ntiles=ntiles, nch=4, sat_bits=8)
+    out, ovf = p4.pileup4_tiles(codes, spos, tab, tab, bits, bits, **kw)
+    out_q, _ = p4.pileup4_tiles(codes, spos, tab, tab, bits, bits,
                                 qual=codes.clone(), min_phred=5, **kw)
     assert p4.LAUNCHES == before
     assert out.shape == (4, ntiles * T) and not out.numpy().any()
     assert not out_q.numpy().any() and int(ovf) == 0
     with pytest.raises(TypeError):
-        p4.pileup4_tiles(codes, shp, tab.long(), tab, bits, bits, **kw)
+        p4.pileup4_tiles(codes, spos, tab.long(), tab, bits, bits, **kw)
+    with pytest.raises(TypeError):
+        p4.pileup4_tiles(codes, spos.to(torch.uint8), tab, tab, bits, bits,
+                         **kw)
     with pytest.raises(ValueError):
-        p4.pileup4_tiles(codes, shp, tab, tab, bits, bits,
+        p4.pileup4_tiles(codes, spos, tab, tab, bits, bits,
                          qual=codes[:, :4].contiguous(), **kw)
     with pytest.raises(ValueError):
-        p4.pileup4_tiles(codes, shp, tab, tab, bits, bits,
+        p4.pileup4_tiles(codes, spos, tab, tab, bits, bits,
                          **dict(kw, nch=3))
     with pytest.raises(ValueError):
-        p4.pileup4_tiles(codes, shp, tab, tab, bits, bits,
+        p4.pileup4_tiles(codes, spos, tab, tab, bits, bits,
                          **dict(kw, sat_bits=12))
     with pytest.raises(ValueError):
-        p4.pileup4_tiles(codes, shp, tab, tab, bits, bits,
+        p4.pileup4_tiles(codes, spos, tab, tab, bits, bits,
                          dst=torch.zeros(ntiles * T, dtype=torch.int32), **kw)
+    with pytest.raises(ValueError):
+        p4.pileup4_tiles(codes, spos, tab, tab, bits, bits, chunk_rows=0,
+                         **kw)
+
+
+def test_pileup_window_runs_on_the_card_by_default():
+    """No device argument means the card: without one the upload raises
+    instead of counting on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    seq = np.full((2, 8), 2, np.uint8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        p4.pileup_window(seq, seq, np.array([0, 3]), np.array([1, 2]),
+                         np.frombuffer(b"ACGT" * 128, np.uint8), 0, T)
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1), n=st.integers(0, 300),
+       L=st.integers(1, 160), tiles=st.integers(1, 4))
+def test_sorted_rows_give_contiguous_tile_ranges(seed, n, L, tiles):
+    """What the kernel's staging and run search rest on, for any
+    coordinate-sorted window: a tile's rows [tlo, thi) are exactly the rows
+    that touch it, in one range; and in the offset-group tables of the 2-bit
+    program the groups of a tile follow one another without a gap and the
+    phases inside a group never decrease."""
+    rng = np.random.default_rng(seed)
+    W = tiles * T
+    f_pos = np.sort(rng.integers(-L - 140, W + 60, n)).astype(np.int64)
+    tlo, thi = hp.tile_rows(f_pos, tiles, L)
+    rows = np.arange(n)
+    for t in range(tiles):
+        touch = (f_pos + L > t * T) & (f_pos < (t + 1) * T)
+        np.testing.assert_array_equal(rows[touch],
+                                      np.arange(tlo[t], thi[t]))
+    LP, K, ntiles = _geometry(L, W)
+    srtk, cntk = _tables(f_pos, ntiles, K, LP)
+    phase = f_pos % 128
+    for g in range(ntiles * K):
+        r0, r1 = srtk[g], srtk[g] + cntk[g]
+        if (g + 1) % K:
+            assert r1 == srtk[g + 1]
+        assert (np.diff(phase[r0:r1]) >= 0).all()
+        assert len(set((f_pos[r0:r1] - phase[r0:r1]).tolist())) <= 1
+
+
+def test_unsorted_rows_are_refused():
+    """The order is a checked precondition: hp.tile_rows raises on
+    rows that are not sorted by start, and window_tables sorts first."""
+    rng = np.random.default_rng(4)
+    f_pos = np.sort(rng.integers(-50, 1500, 200))
+    hp.tile_rows(f_pos, 3, 100)
+    shuffled = rng.permutation(f_pos)
+    with pytest.raises(ValueError, match="sorted"):
+        hp.tile_rows(shuffled, 3, 100)
+    parity = rng.integers(0, 2, 200)
+    order, spos, tlo, thi = hp.window_tables(shuffled, parity, 3, 100)
+    np.testing.assert_array_equal(shuffled[order], f_pos)
+    np.testing.assert_array_equal(spos, 2 * f_pos + parity[order])
+    assert spos.dtype == np.int32 and (spos >> 1 == f_pos).all()
+    want = hp.tile_rows(f_pos, 3, 100)
+    np.testing.assert_array_equal(tlo, want[0])
+    np.testing.assert_array_equal(thi, want[1])
+    same = hp.window_tables(f_pos, parity, 3, 100)[0]
+    np.testing.assert_array_equal(same, np.arange(200))
+
+
+def _brute_channels(args, kw, nch):
+    """The four channels by a plain loop over rows, from the row starts
+    alone (no tile tables): int64 [nch, out_width]."""
+    codes, spos = args[0].numpy(), args[1].numpy()
+    qual = kw.get("qual")
+    ntiles = kw["ntiles"]
+    W = ntiles * T
+    if qual is None:
+        c = np.zeros((codes.shape[0], 2 * codes.shape[1]), np.uint8)
+        c[:, 0::2], c[:, 1::2] = codes & 15, codes >> 4
+    else:
+        c = np.where(qual.numpy() >= kw["min_phred"], codes & 15, 0)
+    is_c = np.unpackbits(args[4].numpy())[:W] != 0
+    is_g = (np.unpackbits(args[5].numpy())[:W] != 0) & ~is_c
+    ch = np.zeros((4, W), np.int64)
+    for r in range(len(spos)):
+        start, odd = int(spos[r]) >> 1, int(spos[r]) & 1
+        for j in np.nonzero(c[r])[0]:
+            x = start + int(j)
+            if not 0 <= x < W:
+                continue
+            b = int(c[r, j])
+            if (is_c[x] and odd) or (is_g[x] and not odd):
+                ch[0, x] += b == (2 if odd else 4)
+                ch[1, x] += b == (8 if odd else 1)
+            else:
+                ch[2, x] += 1
+                ch[3, x] += b != 15 and b != (4 if odd else 2)
+    dst = kw["dst"].numpy()
+    out = np.zeros((4, kw["out_width"]), np.int64)
+    out[:, dst[dst >= 0]] = ch[:, dst >= 0]
+    return out[:nch]
+
+
+@pytest.mark.parametrize("qual_mode", [False, True])
+@pytest.mark.parametrize("L,shift", [(151, 0), (151, 5), (150, 3), (36, 5)])
+def test_staging_edge_cases_on_the_cpu_path(L, shift, qual_mode):
+    """The inputs chip_smoke.py gives the kernel for its staging's edge
+    cases (an odd read length, arrays off 16-byte alignment, a 300-row tile
+    range that needs several chunks, tiles without rows, a last tile whose
+    tail has no output slot) through the CPU path, against a plain loop
+    over rows that knows nothing of tiles."""
+    rng = np.random.default_rng(17 + L + shift)
+    args, kw = pileup4_edge_inputs(rng, L=L, qual_mode=qual_mode, n=500,
+                                   deep=300, shift=shift)
+    assert (args[3] - args[2]).max() >= 300 and (args[3] - args[2]).min() == 0
+    if shift:
+        assert args[0].data_ptr() % 16 and args[1].data_ptr() % 16
+    want = _brute_channels(args, kw, 4)
+    assert want[2].max() > 150  # the deep tile
+    for nch, sat, chunk in ((4, 16, 8), (2, 32, None)):
+        out, ovf = p4.pileup4_tiles(*args, nch=nch, sat_bits=sat,
+                                    chunk_rows=chunk, **kw)
+        assert int(ovf) == 0
+        np.testing.assert_array_equal(out.numpy().astype(np.int64),
+                                      want[:nch])

@@ -16,10 +16,9 @@ from methyldackel_tpu.io.bam import ReadBatch
 from methyldackel_tpu.ops import semantics as sem
 from methyldackel_tpu.parallel import device as jdev
 from methyldackel_tpu.utils.simulate import random_reference, simulate_batch_fast
-from methyldackel_tpu_torch.parallel.device import make_device_backend
-
 from test_fused_v3 import _mix_batch
 from test_group_dispatch import GLEN, W, _emit_read_positions, _window_items
+from test_torch_convert import PortBackend
 
 GRID = [(5, 0), (5, 3), (0, 0), (0, 2), (40, 0)]  # tests/test_fused_v3.py:46
 
@@ -69,7 +68,7 @@ def test_route_a_matches_jax_and_host(monkeypatch, min_phred, min_opp):
     monkeypatch.delenv("MDTPU_FUSED", raising=False)
     ref_ascii, batch, starts = _mixed_items(31)
     cfg = _cfg(min_phred, min_opp)
-    backend = make_device_backend(cfg, device="cpu")
+    backend = PortBackend(cfg)
     jax_backend = jdev.make_device_backend(cfg)
     for it in _window_items(batch, starts, ref_ascii):
         got, host, cand = _check_window(cfg, backend, it, jax_backend)
@@ -87,7 +86,7 @@ def test_nch4_hard_rows_fold_all_channels(monkeypatch):
     # make every third read an indel read: the hard rows carry real depth
     batch.refpos[::3, 40:] += 1
     cfg = _cfg(5, 2)
-    backend = make_device_backend(cfg, device="cpu")
+    backend = PortBackend(cfg)
     (it,) = _window_items(batch, [0], ref_ascii)
     got, host, cand = _check_window(cfg, backend, it)
     np.testing.assert_array_equal(got[cand, 2:], host[cand, 2:])
@@ -113,7 +112,7 @@ def test_route_b_v2_matches_jax_and_host(monkeypatch, min_phred, min_opp):
     cfg = _cfg(min_phred, min_opp)
     cfg.chunkSize = Wv
     it = (batch, st, keep, ref_ascii, 0, 0, Wv, None)
-    backend = make_device_backend(cfg, device="cpu")
+    backend = PortBackend(cfg)
     jax_backend = jdev.make_device_backend(cfg) if min_phred else None
     got, _host, cand = _check_window(cfg, backend, it, jax_backend)
     assert got[cand, 0].sum() + got[cand, 1].sum() > 50
@@ -128,7 +127,7 @@ def test_route_b_hard_pairs(monkeypatch, min_opp):
     monkeypatch.setenv("MDTPU_FUSED", "v2")
     ref_ascii, batch, starts = _mixed_items(43)
     cfg = _cfg(5, min_opp)
-    backend = make_device_backend(cfg, device="cpu")
+    backend = PortBackend(cfg)
     jax_backend = jdev.make_device_backend(cfg)
     for it in _window_items(batch, starts, ref_ascii):
         _check_window(cfg, backend, it, jax_backend)
@@ -164,8 +163,67 @@ def test_coverage_spike_window(monkeypatch, fused, min_opp):
     cfg.chunkSize = 2560
     st = sem.strand(batch.flag, batch.xg)
     it = (batch, st, np.ones(batch.n, bool), ref_ascii, 0, 0, 2560, None)
-    backend = make_device_backend(cfg, device="cpu")
+    backend = PortBackend(cfg)
     got, host, cand = _check_window(cfg, backend, it)
     assert (batch.pos == 1000).sum() > 4096  # one row group
     assert host[1000:1100, :3].sum(axis=1).min() > 1000
+    assert backend.host_routed == 0
+
+
+@pytest.mark.parametrize("fused,min_opp", [("v3", 2), ("v2", 0), ("v2", 3)])
+def test_unsorted_batch_is_sorted_by_the_dispatch(monkeypatch, fused,
+                                                  min_opp):
+    """The 4-channel kernel needs rows sorted by start. The dispatch sorts
+    (the identity for a coordinate-sorted batch), so a batch in any order
+    still equals the host engine; hp.tile_rows itself refuses unsorted
+    starts (tests/test_torch_pileup4.py)."""
+    monkeypatch.setenv("MDTPU_FUSED", fused)
+    rng = np.random.default_rng(83)
+    ref_ascii, ref_codes = random_reference(rng, 5000)
+    batch = simulate_batch_fast(rng, ref_codes, 120, 100)
+    perm = rng.permutation(batch.n)
+    batch = ReadBatch(**{
+        f: ([batch.qname[i] for i in perm] if f == "qname"
+            else getattr(batch, f)[perm])
+        for f in ("qname", "flag", "tid", "pos", "mapq", "l_qseq", "endpos",
+                  "mtid", "mpos", "xg", "nh", "seq", "qual", "refpos")})
+    assert (np.diff(batch.pos) < 0).any()
+    cfg = _cfg(5, min_opp)
+    cfg.chunkSize = 4608
+    st = sem.strand(batch.flag, batch.xg)
+    it = (batch, st, np.ones(batch.n, bool), ref_ascii, 0, 0, 4608, None)
+    backend = PortBackend(cfg)
+    got, _host, cand = _check_window(cfg, backend, it)
+    assert got[cand, :2].sum() > 100 and backend.host_routed == 0
+
+
+@pytest.mark.parametrize("fused", ["v3", "v2"])
+@pytest.mark.parametrize("L", [75, 151])
+def test_odd_read_lengths_and_empty_tiles(monkeypatch, fused, L):
+    """Odd read lengths (a pad nibble in the packed row) and a window whose
+    middle tiles hold no read, --minOppositeDepth on both programs."""
+    monkeypatch.setenv("MDTPU_FUSED", fused)
+    rng = np.random.default_rng(90 + L)
+    ref_ascii, ref_codes = random_reference(rng, 6000)
+    batch = simulate_batch_fast(rng, ref_codes, 150, L)
+    far = (batch.pos < 1200) | (batch.pos > 3400)
+    far = far.reshape(-1, 2).all(axis=1).repeat(2)  # whole pairs
+    order = np.argsort(batch.pos[far], kind="stable")
+    batch = ReadBatch(**{
+        f: ([q for q, k in zip(batch.qname, far) if k] if f == "qname"
+            else getattr(batch, f)[far])
+        for f in ("qname", "flag", "tid", "pos", "mapq", "l_qseq", "endpos",
+                  "mtid", "mpos", "xg", "nh", "seq", "qual", "refpos")})
+    batch = ReadBatch(**{
+        f: ([batch.qname[i] for i in order] if f == "qname"
+            else getattr(batch, f)[order])
+        for f in ("qname", "flag", "tid", "pos", "mapq", "l_qseq", "endpos",
+                  "mtid", "mpos", "xg", "nh", "seq", "qual", "refpos")})
+    cfg = _cfg(5, 2)
+    cfg.chunkSize = 5632
+    st = sem.strand(batch.flag, batch.xg)
+    it = (batch, st, np.ones(batch.n, bool), ref_ascii, 0, 0, 5632, None)
+    backend = PortBackend(cfg)
+    got, host, cand = _check_window(cfg, backend, it)
+    assert not host[1600:3300].any() and got[cand, 2].sum() > 100
     assert backend.host_routed == 0
