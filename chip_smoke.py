@@ -1,36 +1,52 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--busy]
+    python3 chip_smoke.py [--parent DIR] [--busy] [--kernels-only] [--ptxas]
+                          [--variants]
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Device: the card's name and power limit; the three kernel sources
-   (``pileup2.cu``, ``pileup4.cu``, ``arbitrate.cu``) are built from
-   ``methyldackel_tpu_torch/csrc`` with nvcc, one process each, all started
-   together (build times printed).
+   (``pileup2.cu``, ``pileup4.cu``, ``arbitrate.cu``; the two pileups share
+   ``staging.cuh``) are built from ``methyldackel_tpu_torch/csrc`` with
+   nvcc, one process each, all started together (build times printed).
 2. Each kernel against its plain PyTorch version on the card, bit-equal
    (integer counts and qual bytes, tolerance 0), at the shapes of the main
    paths: ``pileup2`` at the default extract's two group programs (4
    windows of 1 Mb at 30x-like depth) in u8, u16 and u32 plus an input built
-   to overflow u8; ``pileup4`` in both layouts at one 1 Mb window of 240k
-   reads of 150 bp (the --minOppositeDepth and v2 single-window programs),
-   NCH 2 and 4, dense and compacted, all widths, plus an overflow input and
-   the staging's edge cases (more than one chunk, a range whose first byte
-   is not 16-byte aligned, an odd read length, tiles without rows, a
-   partial last tile); ``arbitrate`` at 120k pairs of 150 bp with block
-   shifts 0-2 and ineligible pairs. Times are CUDA-event medians after
-   warm-up, plain and kernel in turns. Beside each time stands the kernel's
-   bound: the bytes the function must move (every input read once, every
+   to overflow u8 and the staging's edge cases (arrays off 16-byte
+   alignment, a tile range of several chunks, forced small chunks, 1 to 16
+   lanes a column group, tiles without rows, a last tile whose tail has no
+   output slot, 5,000 rows on one column); ``pileup4`` in both layouts at
+   one 1 Mb window of 240k reads of 150 bp (the --minOppositeDepth and v2
+   single-window programs), NCH 2 and 4, dense and compacted, all widths,
+   plus an overflow input and the staging's edge cases (more than one
+   chunk, a range whose first byte is not 16-byte aligned, an odd read
+   length, tiles without rows, a partial last tile); ``arbitrate`` at 120k
+   pairs of 150 bp (mates 0-329 apart, one pair in nine on different strand
+   parities, which the host drops from the table) plus its edge cases (rows
+   at odd addresses, overlaps of 1 to L bytes, every mate distance from
+   -127 to L, every rule branch, no byte outside an overlap changed). Times
+   are CUDA-event medians after warm-up, plain and kernel in turns, and the
+   kernel's own device time from a torch.profiler trace with a cold and a
+   warm L2. Beside each time stands the kernel's bound: the bytes the function must move (every input read once, every
    output written once, computed from this run's inputs) over the card's
    published 3.35 TB/s, or its integer operations over the published
    1,979 TOP/s, whichever is larger. No single PyTorch call computes any
    of the four functions (each fuses unpack, shift, strand/reference
    classification, count and narrowing), so ``library_ms`` is null.
-   With ``--parent DIR`` (a checkout of an earlier commit), that commit's
-   ``pileup4.cu`` is built too and timed on the same inputs in turns with
-   this one (parent, change, change, parent).
+   ``arbitrate``'s bytes are the least any implementation must move: the
+   pair table, the two starts of each pair, and over each pair's overlap two
+   code and two qual bytes read and the changed quals written.
+   With ``--parent DIR`` (a checkout of the commit before the redesign of
+   ``pileup2.cu`` and ``arbitrate.cu``: their interface with the phase byte,
+   the offset groups and the pair codes, and ``pileup4.cu`` as it is now),
+   that commit's three sources are built too and each kernel is timed on
+   the same rows in turns with this one (parent, change, change, parent);
+   the bytes they store must be equal. With ``--variants`` ``pileup2`` is
+   also timed at other launch shapes than its defaults (lanes that share a
+   column group, staging buffer).
 3. The main paths end to end on a synthetic 2M-read WGBS input, through
    ``extract`` of the port (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every
    window goes to the card): the default extract, ``--minOppositeDepth 5
@@ -188,48 +204,89 @@ def timed(name, kernel_name, kernel, plain):
 
 # ------------------------------------------------------- phase 2: kernel
 
-def group_inputs(rng, *, Kw, pitch, span, lo, n_per, Lq, LP, ctx_slot):
+def parent_tables(f_pos, parity, ntiles, Lc):
+    """The tables of the interface before the redesign, for --parent: the
+    phase byte (low 7 bits start % 128, bit 7 the parity) and the offset
+    groups (group k of tile t holds the rows whose 128-aligned start is
+    t*T - LP + 128*k) over rows sorted by start."""
+    f_pos = np.asarray(f_pos, np.int64)
+    LP = max(-(-Lc // 128) * 128, 128)
+    K = (T + LP) // 128
+    bounds = (np.arange(ntiles)[:, None] * T - LP
+              + 128 * np.arange(K + 1)[None, :])
+    flat = np.searchsorted(f_pos - f_pos % 128, bounds.reshape(-1),
+                           side="left").reshape(ntiles, K + 1)
+    shp = ((f_pos % 128).astype(np.uint8)
+           | (np.asarray(parity, np.uint8) << 7)).astype(np.uint8)
+    return dict(shp=shp, srtk=flat[:, :K].astype(np.int32).reshape(-1),
+                cntk=np.diff(flat, axis=1).astype(np.int32).reshape(-1),
+                K=K, LP=LP)
+
+
+def group_inputs(rng, *, Kw, pitch, span, lo, n_per, Lq, ctx_slot,
+                 all_cg=False):
     """Random group-program inputs: Kw windows of ``span`` columns in slots
     of ``pitch``, n_per rows each with starts in [lo, span), random 2-bit
-    codes and parities, reference bitmaps of a random 42% GC genome, and
-    the compaction map of the CpG candidates. Group tables come from the
-    dispatch's own host code."""
+    codes and parities, reference bitmaps of a random 42% GC genome (with
+    ``all_cg``, as in candidate space, every column of a span is a C or a
+    G), and the compaction map of the CpG candidates. Row and tile tables
+    come from
+    the dispatch's own host code; ``old`` holds the tables of the earlier
+    interface for --parent."""
     from methyldackel_tpu_torch.parallel import host_prep as hp
 
     W_tot = Kw * pitch
     ntiles = W_tot // T
-    K = (T + LP) // 128
     f_pos = np.concatenate([np.sort(rng.integers(lo, span, n_per)) + k * pitch
                             for k in range(Kw)])
-    aligned = f_pos - f_pos % 128
-    srtk, cntk = hp.group_tables(aligned, ntiles, K, LP)
     n = len(f_pos)
     seqpack = rng.integers(0, 256, (n, Lq), dtype=np.uint8)
-    shp = hp.shp_bytes(f_pos.astype(np.int32),
-                       rng.integers(0, 2, n).astype(np.uint8))
-    base = rng.choice(4, W_tot, p=[0.29, 0.21, 0.21, 0.29])
+    parity = rng.integers(0, 2, n).astype(np.uint8)
+    seqpack, spos, tlo, thi = hp.packed_tables(
+        seqpack, f_pos.astype(np.int32), parity, ntiles)
+    base = rng.choice(4, W_tot, p=[0, 0.5, 0.5, 0] if all_cg
+                      else [0.29, 0.21, 0.21, 0.29])
     data = (np.arange(W_tot) % pitch) < span
     cb, gb = (base == 1) & data, (base == 2) & data
     cand = np.nonzero(hp.ctx_mask_np(cb, gb, 1, ctx_slot))[0]
     dst = np.full(W_tot, -1, np.int32)
     dst[cand] = np.arange(len(cand), dtype=np.int32)
-    return dict(seqpack=seqpack, shp=shp, srtk=srtk, cntk=cntk,
+    return dict(seqpack=seqpack, spos=spos, tlo=tlo, thi=thi,
                 isc=np.packbits(cb), isg=np.packbits(gb), dst=dst,
-                ncand=len(cand), ntiles=ntiles, K=K, LP=LP)
+                ncand=len(cand), ntiles=ntiles,
+                old=parent_tables(f_pos, parity, ntiles, 4 * Lq))
 
 
-def kernel_vs_plain(name, inp, compact):
+def parent_turns(name, kernel_name, parent, change):
+    """Device ms (cold L2, warm L2) of the parent commit's kernel and of
+    this one, in turns in this process: parent, change, change, parent.
+    Returns the parent's first pair."""
+    par = [kernel_device_ms(parent, kernel_name)]
+    new = [kernel_device_ms(change, kernel_name) for _ in range(2)]
+    par.append(kernel_device_ms(parent, kernel_name))
+    print(f"  {name}: parent commit's kernel, this one, this one, parent "
+          "(ms on the device, cold L2 / warm L2): "
+          + ", ".join(f"{c:.4f} / {w:.4f}" for c, w in (par[0], *new, par[1]))
+          + f" ({card_line()}); stored bytes equal", flush=True)
+    return par[0]
+
+
+def kernel_vs_plain(name, inp, compact, parent_fn=None, variants=()):
     """Bit-equality in all three widths, then times at u8. Returns
     the times of ``timed`` plus err, bytes (every input once + the u8
-    output once) and ops (a compare and an add per code of every row)."""
+    output once), ops (a compare and an add per code of every row) and,
+    with ``parent_fn`` (the parent commit's ``mdtpu_pileup2``, which takes
+    the ``old`` tables of the same rows and must store the same bytes),
+    parent_ms. ``variants`` are further (label, kwargs) launch shapes to
+    time."""
     import torch
 
     from methyldackel_tpu_torch.ops import pileup as pk
 
     dev = torch.device("cuda")
     args = [torch.from_numpy(inp[k]).to(dev)
-            for k in ("seqpack", "shp", "srtk", "cntk", "isc", "isg")]
-    geom = dict(ntiles=inp["ntiles"], K=inp["K"], LP=inp["LP"])
+            for k in ("seqpack", "spos", "tlo", "thi", "isc", "isg")]
+    geom = dict(ntiles=inp["ntiles"])
     extra = {}
     if compact:
         extra = dict(dst=torch.from_numpy(inp["dst"]).to(dev),
@@ -253,14 +310,55 @@ def kernel_vs_plain(name, inp, compact):
         if d != 0 or int(got_ovf.item()) != int(want_ovf.item()):
             raise AssertionError(f"{name} u{sat}: kernel != plain version")
     kw8 = dict(geom, sat_bits=8, **extra)
-    print(f"  {name}: rows {len(inp['shp'])} tiles {inp['ntiles']} K "
-          f"{inp['K']} Lq {inp['seqpack'].shape[1]}", flush=True)
-    res = timed(name, "pileup2_kernel",
+    print(f"  {name}: rows {len(inp['spos'])} tiles {inp['ntiles']} Lq "
+          f"{inp['seqpack'].shape[1]}", flush=True)
+    res = timed(name, "pileup2_",
                 lambda: pk.pileup2_tiles(*args, **kw8),
                 lambda: pk.pileup2_tiles_reference(*args, **kw8))
     out8, ovf8 = pk.pileup2_tiles(*args, **kw8)
     res.update(err=err, bytes=nbytes_of(*args, extra.get("dst"), out8, ovf8),
                ops=2 * inp["seqpack"].size * 4)
+    for label, vkw in variants:
+        vkw = dict(vkw)
+        if "budget_kb" in vkw:
+            vkw["chunk_rows"] = vkw.pop("budget_kb") * 1024 \
+                // (inp["seqpack"].shape[1] + 4)
+        got, _ = pk.pileup2_tiles(*args, **kw8, **vkw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, out8):
+            raise AssertionError(f"{name} {label}: != the default launch")
+        cold, warm = kernel_device_ms(
+            lambda: pk.pileup2_tiles(*args, **kw8, **vkw), "pileup2_")
+        print(f"  {name} variant {label}: {cold} / {warm} ms on the "
+              f"device, cold / warm L2 ({card_line()})", flush=True)
+    if parent_fn is not None:
+        old = inp["old"]
+        o_args = [torch.from_numpy(old[k]).to(dev)
+                  for k in ("shp", "srtk", "cntk")]
+        o_out = torch.zeros_like(out8)
+        o_ovf = torch.zeros_like(ovf8)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        Lq = inp["seqpack"].shape[1]
+        dst = extra.get("dst")
+
+        def parent():
+            rc = parent_fn(
+                args[0].data_ptr(), o_args[0].data_ptr(),
+                o_args[1].data_ptr(), o_args[2].data_ptr(),
+                args[4].data_ptr(), args[5].data_ptr(),
+                None if dst is None else dst.data_ptr(), o_out.data_ptr(),
+                o_ovf.data_ptr(), inp["ntiles"], old["K"], old["LP"], 4 * Lq,
+                Lq, inp["ntiles"] * T, o_out.shape[1], 8, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent pileup2 launch: cudaError {rc}")
+
+        parent()
+        torch.cuda.synchronize()
+        if not torch.equal(o_out, out8) or int(o_ovf) != int(ovf8):
+            raise AssertionError(f"{name}: parent kernel != this kernel")
+        res["parent_ms"], res["parent_ms_warm"] = parent_turns(
+            name, "pileup2_", parent,
+            lambda: pk.pileup2_tiles(*args, **kw8))
     return res
 
 
@@ -272,22 +370,20 @@ def overflow_case(rng):
     from methyldackel_tpu_torch.ops import pileup as pk
     from methyldackel_tpu_torch.parallel import host_prep as hp
 
-    n, Lq, LP, ntiles = 300, 38, 256, 4
-    K = (T + LP) // 128
+    n, Lq, ntiles = 300, 38, 4
     f_pos = np.full(n, 700, np.int64)
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
     seqpack = np.full((n, Lq), 0x55, np.uint8)  # code 1 everywhere
-    shp = hp.shp_bytes(f_pos.astype(np.int32), np.ones(n, np.uint8))
+    spos = hp.row_spos(f_pos, np.ones(n, np.uint8))
+    tlo, thi = hp.tile_rows(f_pos, ntiles, 4 * Lq)
     isc = np.full(ntiles * T // 8, 0xFF, np.uint8)
     isg = np.zeros_like(isc)
     dev = torch.device("cuda")
     args = [torch.from_numpy(a).to(dev)
-            for a in (seqpack, shp, srtk, cntk, isc, isg)]
+            for a in (seqpack, spos, tlo, thi, isc, isg)]
     for sat, want_flag in ((8, 1), (16, 0), (32, 0)):
-        got, ovf = pk.pileup2_tiles(*args, ntiles=ntiles, K=K, LP=LP,
-                                    sat_bits=sat)
-        want, wovf = pk.pileup2_tiles_reference(*args, ntiles=ntiles, K=K,
-                                                LP=LP, sat_bits=sat)
+        got, ovf = pk.pileup2_tiles(*args, ntiles=ntiles, sat_bits=sat)
+        want, wovf = pk.pileup2_tiles_reference(*args, ntiles=ntiles,
+                                                sat_bits=sat)
         torch.cuda.synchronize()
         same = np.array_equal(got.view(torch.uint8).cpu().numpy(),
                               want.view(torch.uint8).cpu().numpy())
@@ -298,14 +394,112 @@ def overflow_case(rng):
             raise AssertionError(f"overflow case u{sat} failed")
 
 
+def _placed(arr, shift):
+    """``arr`` as a CPU tensor; with ``shift`` > 0 a view ``shift`` elements
+    into a larger buffer, so that it does not start 16-byte aligned."""
+    import torch
+
+    flat = torch.from_numpy(np.ascontiguousarray(arr)).reshape(-1)
+    if not shift:
+        return flat.reshape(arr.shape)
+    big = torch.zeros(flat.numel() + shift + 3, dtype=flat.dtype)
+    big[shift : shift + flat.numel()] = flat
+    return big[shift : shift + flat.numel()].view(arr.shape)
+
+
+def pileup2_edge_inputs(rng, *, Lq, ntiles=9, n=3000, deep=5000, shift=0):
+    """Rows for the edge cases of ``pileup2`` (numpy, CPU): no row anywhere
+    near tiles 3-4 (tiles without rows), ``deep`` rows on one start (a
+    coverage spike: one column's count passes u8, and its tile range is
+    longer than any default chunk), rows running past a real width that
+    ends inside the last tile (its columns there have no output slot),
+    starts left of column 0, and with ``shift`` > 0 seqpack and
+    spos placed ``shift`` bytes / words into a larger buffer. Returns (args,
+    kwargs) of ``pileup2_tiles`` on the CPU."""
+    import torch
+
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    W = ntiles * T
+    real_w = W - 200
+    Lc = 4 * Lq
+    f_pos = rng.integers(-Lc + 1, real_w + 40, n)
+    f_pos = f_pos[(f_pos < 3 * T - Lc) | (f_pos >= 5 * T)]
+    f_pos = np.sort(np.concatenate([f_pos, np.full(deep, 5 * T + 77)]))
+    n = len(f_pos)
+    seqpack = rng.integers(0, 256, (n, Lq), dtype=np.uint8)
+    parity = rng.integers(0, 2, n).astype(np.uint8)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, Lc)
+    if not (thi - tlo)[3:5].max() == 0 or (thi - tlo).max() < deep:
+        raise AssertionError("edge input lost its empty or its deep tile")
+    dst = np.full(W, -1, np.int32)
+    cand = np.sort(rng.choice(real_w, real_w // 3, replace=False))
+    dst[cand] = np.arange(len(cand), dtype=np.int32)
+    args = [_placed(seqpack, shift),
+            _placed(hp.row_spos(f_pos, parity), shift),
+            torch.from_numpy(tlo), torch.from_numpy(thi),
+            torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8))]
+    return args, dict(ntiles=ntiles, dst=torch.from_numpy(dst),
+                      out_width=len(cand))
+
+
+PILEUP2_EDGE_CASES = (
+    # Lq, arrays off alignment, chunk rows, lanes a column group
+    (38, 0, 8, 1), (38, 5, None, 2), (16, 3, 8, 4), (9, 5, None, 8),
+    (16, 5, 100, None), (1, 3, None, 16), (38, 0, 100000, 8))
+
+
+def pileup2_edge_cases(rng):
+    """Kernel == plain version on the edge cases of ``pileup2_edge_inputs``
+    (Lq 38 / 16 / 9 / 1 bytes a row), with staging chunks of 8 rows, 100
+    rows, the default and more rows than shared memory holds (clamped), 1
+    to 16 lanes a column group, arrays 3-5 bytes / words off 16-byte
+    alignment;
+    dense and compacted, u8 (the spike must set the overflow flag), u16
+    and u32 (exact)."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import pileup as pk
+
+    for Lq, shift, chunk, split in PILEUP2_EDGE_CASES:
+        args, kw = pileup2_edge_inputs(rng, Lq=Lq, shift=shift)
+        d_args = [_to_cuda(a, shift if i < 2 else 0)
+                  for i, a in enumerate(args)]
+        compact = dict(dst=kw["dst"].cuda(), out_width=kw["out_width"])
+        if shift and (d_args[0].data_ptr() % 16 == 0
+                      or d_args[1].data_ptr() % 16 == 0):
+            raise AssertionError("edge input is 16-byte aligned")
+        for sat, want_flag in ((8, 1), (16, 0), (32, 0)):
+            for extra in ({}, compact):
+                k = dict(ntiles=kw["ntiles"], sat_bits=sat, **extra)
+                got, govf = pk.pileup2_tiles(*d_args, chunk_rows=chunk,
+                                             split=split, **k)
+                want, wovf = pk.pileup2_tiles_reference(*d_args, **k)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8)) \
+                        or int(govf.item()) != int(wovf.item()) \
+                        or int(govf.item()) != want_flag:
+                    raise AssertionError(
+                        f"pileup2 edge case Lq {Lq} shift {shift} chunk "
+                        f"{chunk} split {split} u{sat} "
+                        f"{'compacted' if extra else 'dense'}: kernel != "
+                        "plain version")
+        print(f"  pileup2 edge case: Lq {Lq}, arrays {shift} off alignment, "
+              f"chunk rows {chunk or 'default'}, lanes a column group "
+              f"{split or 'default'}, {len(args[1])} rows with a 5,000-row "
+              "spike, empty tiles, partial last tile: equal, u8 flags "
+              "overflow", flush=True)
+
+
 def window_inputs(rng, *, n, L, wpad, qual_mode):
     """One 1 Mb window of the single-window programs: n position-sorted
     rows of L codes (A/C/G/T/N, some 0 = gated or absent) starting anywhere
     in [-L, wpad), nibble-packed (nq) or one per byte with quals 0-41
     (qual), random parities, reference bitmaps of a random 42% GC genome,
     and the compaction map of its CpG candidates. Row and tile tables come
-    from the dispatch's own host code; ``old`` holds the tables of the
-    earlier interface (phase byte and offset groups) for --parent."""
+    from the dispatch's own host code."""
     from methyldackel_tpu_torch.parallel import host_prep as hp
 
     ntiles = wpad // T
@@ -327,34 +521,45 @@ def window_inputs(rng, *, n, L, wpad, qual_mode):
     cand = np.nonzero(hp.ctx_mask_np(cb, gb, 1, wpad))[0]
     dst = np.full(wpad, -1, np.int32)
     dst[cand] = np.arange(len(cand), dtype=np.int32)
-    LP = hp.round_up(max(4 * ((L + 3) // 4), 128), 128)
-    K = (T + LP) // 128
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
-    old = dict(shp=hp.shp_bytes(f_pos.astype(np.int32), parity), srtk=srtk,
-               cntk=cntk, K=K, LP=LP)
     return dict(codes=codes, qual=qual if qual_mode else None,
                 spos=hp.row_spos(f_pos, parity), tlo=tlo, thi=thi,
                 isc=np.packbits(cb), isg=np.packbits(gb), dst=dst,
-                ncand=len(cand), ntiles=ntiles, old=old)
+                ncand=len(cand), ntiles=ntiles)
 
 
-def parent_pileup4(parent_dir):
-    """The ``mdtpu_pileup4`` entry of an earlier commit's ``pileup4.cu``
-    (the interface with the phase byte and the offset groups), built with
-    this checkout's build code into its own directory."""
+PARENT_ARGTYPES = {
+    # the C interfaces of the parent commit (see --parent in the docstring)
+    "pileup2": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "pileup4": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    "arbitrate": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
+}
+
+
+def parent_kernels(parent_dir):
+    """The ``mdtpu_pileup2``, ``mdtpu_pileup4`` and ``mdtpu_arbitrate``
+    entries of an earlier commit's sources, built in parallel with this
+    checkout's build code into their own libraries. Returns {name: fn}."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from methyldackel_tpu_torch.ops import build
 
-    src = os.path.join(parent_dir, "methyldackel_tpu_torch", "csrc",
-                       "pileup4.cu")
-    out = os.path.join(build.BUILD_DIR, "libpileup4_parent.so")
     os.makedirs(build.BUILD_DIR, exist_ok=True)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
-                   check=True)
-    fn = ctypes.CDLL(out).mdtpu_pileup4
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+    def one(name):
+        src = os.path.join(parent_dir, "methyldackel_tpu_torch", "csrc",
+                           f"{name}.cu")
+        out = os.path.join(build.BUILD_DIR, f"lib{name}_parent.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
+                       check=True)
+        fn = getattr(ctypes.CDLL(out), f"mdtpu_{name}")
+        fn.argtypes = PARENT_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        return fn
+
+    with ThreadPoolExecutor(len(PARENT_ARGTYPES)) as ex:
+        return dict(zip(PARENT_ARGTYPES, ex.map(one, PARENT_ARGTYPES)))
 
 
 def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
@@ -362,9 +567,9 @@ def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
     then times of the compacted u8 program at ``timed_nch`` (the main
     path's readback). Returns the times of ``timed`` plus err, bytes (every
     input once + the output once), ops (four channel updates per code of
-    every row) and, with ``parent_fn``, parent_ms. ``parent_fn`` (see
-    ``parent_pileup4``) is timed in turns with the kernel on the same
-    rows and must store the same bytes."""
+    every row) and, with ``parent_fn``, parent_ms. ``parent_fn`` (the
+    parent commit's ``mdtpu_pileup4``, same interface) is timed in turns
+    with the kernel on the same tensors and must store the same bytes."""
     import torch
 
     from methyldackel_tpu_torch.ops import pileup4 as p4
@@ -411,9 +616,6 @@ def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
     res.update(err=err, ops=4 * len(inp["spos"]) * Lc, bytes=nbytes_of(
         *args, mode.get("qual"), compact["dst"], out8, ovf8))
     if parent_fn is not None:
-        old = inp["old"]
-        o_args = [torch.from_numpy(old[k]).to(dev)
-                  for k in ("shp", "srtk", "cntk")]
         o_out = torch.zeros_like(out8)
         o_ovf = torch.zeros_like(ovf8)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -423,12 +625,10 @@ def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
             rc = parent_fn(
                 args[0].data_ptr(),
                 None if qual is None else qual.data_ptr(),
-                o_args[0].data_ptr(), o_args[1].data_ptr(),
-                o_args[2].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
-                compact["dst"].data_ptr(), o_out.data_ptr(),
-                o_ovf.data_ptr(), inp["ntiles"], old["K"], old["LP"], Lc,
-                inp["codes"].shape[1], inp["ntiles"] * T, inp["ncand"],
-                timed_nch, 5, 8, stream)
+                *(a.data_ptr() for a in args[1:]), compact["dst"].data_ptr(),
+                o_out.data_ptr(), o_ovf.data_ptr(), inp["ntiles"],
+                len(inp["spos"]), Lc, inp["codes"].shape[1], 0,
+                inp["ntiles"] * T, inp["ncand"], timed_nch, 5, 8, stream)
             if rc != 0:
                 raise RuntimeError(f"parent pileup4 launch: cudaError {rc}")
 
@@ -436,17 +636,9 @@ def pileup4_vs_plain(name, inp, timed_nch, parent_fn=None):
         torch.cuda.synchronize()
         if not torch.equal(o_out, out8):
             raise AssertionError(f"{name}: parent kernel != this kernel")
-        # parent, change, change, parent
-        par = [kernel_device_ms(parent, "pileup4_kernel")]
-        new = [kernel_device_ms(lambda: p4.pileup4_tiles(*args, **kw8),
-                                "pileup4_kernel") for _ in range(2)]
-        par.append(kernel_device_ms(parent, "pileup4_kernel"))
-        res["parent_ms"], res["parent_ms_warm"] = par[0]
-        print(f"  {name}: parent commit's kernel, this one, this one, "
-              f"parent (ms on the device, cold L2 / warm L2): "
-              + ", ".join(f"{c:.4f} / {w:.4f}"
-                          for c, w in (par[0], *new, par[1]))
-              + f" ({card_line()}); stored bytes equal", flush=True)
+        res["parent_ms"], res["parent_ms_warm"] = parent_turns(
+            name, "pileup4_kernel", parent,
+            lambda: p4.pileup4_tiles(*args, **kw8))
     return res
 
 
@@ -528,21 +720,14 @@ def pileup4_edge_inputs(rng, *, L, qual_mode, ntiles=8, n=3000, deep=700,
     cand = np.sort(rng.choice(real_w, real_w // 3, replace=False))
     dst[cand] = np.arange(len(cand), dtype=np.int32)
 
-    def placed(arr):
-        flat = torch.from_numpy(np.ascontiguousarray(arr)).reshape(-1)
-        if not shift:
-            return flat.reshape(arr.shape)
-        big = torch.zeros(flat.numel() + shift + 3, dtype=flat.dtype)
-        big[shift : shift + flat.numel()] = flat
-        return big[shift : shift + flat.numel()].view(arr.shape)
-
-    args = [placed(codes), placed(hp.row_spos(f_pos, parity)),
+    args = [_placed(codes, shift),
+            _placed(hp.row_spos(f_pos, parity), shift),
             torch.from_numpy(tlo), torch.from_numpy(thi),
             torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8)),
             torch.from_numpy(rng.integers(0, 256, W // 8, dtype=np.uint8))]
     kw = dict(ntiles=ntiles, dst=torch.from_numpy(dst), out_width=len(cand))
     if qual_mode:
-        kw.update(qual=placed(qual), min_phred=5)
+        kw.update(qual=_placed(qual, shift), min_phred=5)
     return args, kw
 
 
@@ -598,15 +783,19 @@ def pileup4_edge_cases(rng):
                   f"{int(got.view(torch.uint8).long().sum())})", flush=True)
 
 
-def arbitrate_vs_plain(rng, *, P, L, span):
+def arbitrate_vs_plain(rng, *, P, L, span, parent_fn=None):
     """P mate pairs over ``span`` columns, position-sorted as the v2
     program sorts them, mates 0-329 apart (block shifts 0-2 and beyond),
     one pair in nine on different strand parities, quals 0-255. Kernel and
     plain version rewrite copies of the same quals. Returns the times of
-    ``timed`` plus err, bytes and ops: bytes = the tables, both mates' codes and quals
-    of the eligible pairs (block shift 0-2) read once and the quals this
-    input rewrites written once; ops = four per base of an eligible
-    pair."""
+    ``timed`` plus err, bytes, ops and the bytes of the bound as it was
+    computed before (``old_bytes``). bytes = the least work: the pair table,
+    two starts a pair, and over each pair's overlap two code and two qual
+    bytes read and the quals this input rewrites written once; ops = four
+    per base of an overlap. ``parent_fn`` (the parent commit's
+    ``mdtpu_arbitrate``) takes the phase bytes and the full pair table with
+    its codes, built here from the same rows, and must store the same
+    bytes."""
     import torch
 
     from methyldackel_tpu_torch.ops import arbitrate as ar
@@ -616,46 +805,189 @@ def arbitrate_vs_plain(rng, *, P, L, span):
     f_pos = np.empty(n, np.int64)
     f_pos[0::2] = rng.integers(0, span, P)
     f_pos[1::2] = f_pos[0::2] + rng.integers(0, 330, P)
-    aligned = f_pos - f_pos % 128
-    order = np.argsort(aligned, kind="stable")
+    order = np.argsort(f_pos, kind="stable")
     frame = np.empty(n, np.int64)
     frame[order] = np.arange(n)
+    f_pos = f_pos[order]
+    aligned = f_pos - f_pos % 128
     st = rng.integers(1, 3, n)
     st[1::2] = st[0::2]
     st[1::18] ^= 3
-    pa, pb, code = hp.v2_pair_tables(aligned[order], st[order], frame[0::2],
-                                     frame[1::2])
+    st = st[order]
+    pa, pb = hp.v2_pair_tables(aligned, st, frame[0::2], frame[1::2])
     seq = np.array([1, 2, 4, 8, 15], np.uint8)[
         rng.choice(5, (n, L), p=[0.29, 0.2, 0.2, 0.29, 0.02])]
     qual = rng.integers(0, 256, (n, L), dtype=np.uint8)
-    shp = hp.shp_bytes(f_pos[order].astype(np.int32),
-                       (st[order] & 1).astype(np.uint8))
+    spos = hp.row_spos(f_pos, st & 1)
     dev = torch.device("cuda")
-    s_t, shp_t, pa_t, pb_t, code_t = [
+    s_t, spos_t, pa_t, pb_t = [
         torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        for a in (seq, shp, pa, pb, code)]
+        for a in (seq, spos, pa, pb)]
     q0 = torch.from_numpy(qual).to(dev)
     got, want = q0.clone(), q0.clone()
-    ar.arbitrate(s_t, got, shp_t, pa_t, pb_t, code_t)
-    ar.arbitrate_reference(s_t, want, shp_t, pa_t, pb_t, code_t)
+    ar.arbitrate(s_t, got, spos_t, pa_t, pb_t)
+    ar.arbitrate_reference(s_t, want, spos_t, pa_t, pb_t)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     changed = int((got != q0).sum())
-    counts = np.bincount(code, minlength=4)
-    print(f"  arbitrate: {P} pairs x {L} (codes 0/1/2/3: {counts.tolist()}), "
+    d = f_pos[pb] - f_pos[pa]
+    overlap = int(np.clip(np.minimum(L, L + d) - np.maximum(0, d), 0,
+                          None).sum())
+    print(f"  arbitrate: {P} pairs x {L}, {len(pa)} eligible, {overlap} "
+          f"overlapping bases ({overlap / max(len(pa), 1):.1f} a pair), "
           f"{changed} quals rewritten, max_abs_err {err}", flush=True)
     if err != 0 or changed == 0:
         raise AssertionError("arbitrate: kernel != plain version")
     q = q0.clone()  # in place: both rewrite the same bytes each call
     res = timed(
         "arbitrate", "arbitrate_kernel",
-        lambda: ar.arbitrate(s_t, q, shp_t, pa_t, pb_t, code_t),
-        lambda: ar.arbitrate_reference(s_t, q, shp_t, pa_t, pb_t, code_t))
-    eligible = int((code < 3).sum())
-    res.update(err=err, ops=4 * eligible * L,
-               bytes=nbytes_of(shp_t, pa_t, pb_t, code_t)
-               + eligible * 2 * L * 2 + changed)
+        lambda: ar.arbitrate(s_t, q, spos_t, pa_t, pb_t),
+        lambda: ar.arbitrate_reference(s_t, q, spos_t, pa_t, pb_t))
+    # before: both mates' whole rows of every eligible pair, and a phase
+    # byte a row and a code byte a pair instead of the starts
+    old_bytes = n + 9 * P + len(pa) * 2 * L * 2 + changed
+    res.update(err=err, ops=4 * overlap, old_bytes=old_bytes,
+               bytes=nbytes_of(pa_t, pb_t) + 8 * len(pa) + 4 * overlap
+               + changed)
+    if parent_fn is not None:
+        # the table before the redesign: every pair, code 3 = left alone
+        fa, fb = frame[0::2], frame[1::2]
+        swap = aligned[fa] > aligned[fb]
+        o_pa, o_pb = np.where(swap, fb, fa), np.where(swap, fa, fb)
+        sh = (aligned[o_pb] - aligned[o_pa]) // 128
+        elig = (((st[o_pa] - st[o_pb]) & 1) == 0) & (sh >= 0) & (sh <= 2)
+        if not (np.array_equal(o_pa[elig], pa)
+                and np.array_equal(o_pb[elig], pb)):
+            raise AssertionError("the two interfaces' pair tables differ")
+        shp = parent_tables(f_pos, st & 1, 1, L)["shp"]
+        o_t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            shp, o_pa.astype(np.int32), o_pb.astype(np.int32),
+            np.where(elig, sh, 3).astype(np.uint8))]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        qp = q0.clone()
+
+        def parent(qual_t=q):
+            rc = parent_fn(s_t.data_ptr(), qual_t.data_ptr(),
+                           *(t.data_ptr() for t in o_t), P, L, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent arbitrate launch: cudaError {rc}")
+
+        parent(qp)
+        torch.cuda.synchronize()
+        if not torch.equal(qp, got):
+            raise AssertionError("arbitrate: parent kernel != this kernel")
+        res["parent_ms"], res["parent_ms_warm"] = parent_turns(
+            "arbitrate", "arbitrate_kernel", parent,
+            lambda: ar.arbitrate(s_t, q, spos_t, pa_t, pb_t))
     return res
+
+
+def arbitrate_edge_inputs(rng, *, L, shift=0):
+    """Pairs for the edge cases of ``arbitrate`` (numpy, CPU): one pair for
+    every mate distance d from -127 (b left of a, in one 128-block) to L (no
+    overlap), so overlaps of 1, 3, 4, 5, ... L bytes at every byte alignment;
+    a third of the pairs with b's bases and quals copied from a on the
+    overlap (ties: b wins), N bases, code 0 (no base) in both mates, quals
+    0-255, and for L >= 10 one position for every branch of the rule on the
+    pair with d = 0; rows in random order; with ``shift`` > 0 seq and qual placed
+    ``shift`` bytes into a larger buffer (rows of L bytes then start at odd
+    addresses). Returns (seq, qual, spos, pa, pb) as CPU tensors and the
+    bool mask of the qual bytes inside a pair's overlap."""
+    import torch
+
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    ds = np.arange(-127, L + 1)
+    P = len(ds)
+    n = 2 * P + 3  # three rows in no pair
+    rows = rng.permutation(n)
+    ra, rb = rows[:P], rows[P : 2 * P]
+    f_pos = rng.integers(0, 1000, n).astype(np.int64)
+    f_pos[ra] = 1024 * np.arange(P) + np.where(ds < 0, 127, 3)
+    f_pos[rb] = f_pos[ra] + ds
+    seq = np.array([1, 2, 4, 8, 15, 0], np.uint8)[
+        rng.choice(6, (n, L), p=[0.27, 0.2, 0.2, 0.25, 0.04, 0.04])]
+    qual = rng.integers(0, 256, (n, L), dtype=np.uint8)
+    i = np.arange(L)[None, :]
+    in_a = (i >= ds[:, None]) & (i < L + ds[:, None])
+    in_b = (i + ds[:, None] >= 0) & (i + ds[:, None] < L)
+    for p in range(0, P, 3):
+        ia = np.nonzero(in_a[p])[0]
+        seq[rb[p], ia - ds[p]] = seq[ra[p], ia]
+        qual[rb[p], ia[::2] - ds[p]] = qual[ra[p], ia[::2]]
+    if L >= 10:  # (base a, qual a, base b, qual b) for every rule branch
+        forced = [(2, 9, 2, 5), (2, 7, 2, 7), (4, 5, 4, 9), (1, 9, 8, 5),
+                  (15, 9, 8, 5), (1, 5, 8, 9), (1, 5, 15, 9), (1, 7, 8, 7),
+                  (2, 250, 2, 40), (0, 9, 2, 5)]
+        p0 = int(np.nonzero(ds == 0)[0][0])
+        for i, (ba, qa, bb, qb) in enumerate(forced):
+            seq[ra[p0], i], qual[ra[p0], i] = ba, qa
+            seq[rb[p0], i], qual[rb[p0], i] = bb, qb
+    st = np.ones(n, np.int64)
+    pa, pb = hp.v2_pair_tables(f_pos - f_pos % 128, st, ra, rb)
+    if not (np.array_equal(pa, ra) and np.array_equal(pb, rb)):
+        raise AssertionError("edge pairs lost their roles")
+    inside = np.zeros((n, L), bool)
+    inside[ra] = in_a
+    inside[rb] = in_b
+    # every branch of the rule must occur on the overlaps
+    ba, qa = seq[ra][in_a].astype(int), qual[ra][in_a].astype(int)
+    bb, qb = seq[rb][in_b].astype(int), qual[rb][in_b].astype(int)
+    has = (ba != 0) & (bb != 0)
+    branches = {
+        "no base": ~has, "same, a higher": has & (ba == bb) & (qa > qb),
+        "same, tie": has & (ba == bb) & (qa == qb),
+        "same, b higher": has & (ba == bb) & (qa < qb),
+        "differ, a higher": has & (ba != bb) & (qa > qb) & (ba != 15),
+        "differ, a higher but N": has & (ba != bb) & (qa > qb) & (ba == 15),
+        "differ, b higher": has & (ba != bb) & (qb > qa) & (bb != 15),
+        "differ, b higher but N": has & (ba != bb) & (qb > qa) & (bb == 15),
+        "differ, tie": has & (ba != bb) & (qa == qb),
+        "boost past 255": has & (ba == bb) & (np.maximum(qa, qb) > 212)}
+    missing = [k for k, m in branches.items() if not m.any()]
+    if missing and L >= 10:
+        raise AssertionError(f"edge pairs miss rule branches: {missing}")
+    tensors = (_placed(seq, shift), _placed(qual, shift),
+               torch.from_numpy(hp.row_spos(f_pos, st & 1)),
+               torch.from_numpy(pa), torch.from_numpy(pb))
+    return tensors, inside
+
+
+ARBITRATE_EDGE_CASES = ((150, 1), (150, 3), (151, 0), (36, 3), (5, 1))
+
+
+def arbitrate_edge_cases(rng):
+    """Kernel == plain version on the pairs of ``arbitrate_edge_inputs``
+    (L 150 at odd addresses, L 151 with rows at every alignment, L 36, L 5),
+    and no byte outside a pair's overlap changed."""
+    import torch
+
+    from methyldackel_tpu_torch.ops import arbitrate as ar
+
+    for L, shift in ARBITRATE_EDGE_CASES:
+        (seq, qual, spos, pa, pb), inside = arbitrate_edge_inputs(
+            rng, L=L, shift=shift)
+        d_seq, d_q0 = _to_cuda(seq, shift), _to_cuda(qual, shift)
+        rest = [t.cuda() for t in (spos, pa, pb)]
+        if shift % 2 and d_q0.data_ptr() % 2 == 0:
+            raise AssertionError("edge input is not at an odd address")
+        got, want = d_q0.clone(), d_q0.clone()
+        if shift:  # a clone is aligned again: arbitrate the placed array
+            got = _to_cuda(qual, shift)
+        ar.arbitrate(d_seq, got, *rest)
+        ar.arbitrate_reference(d_seq, want, *rest)
+        torch.cuda.synchronize()
+        outside = ~torch.from_numpy(inside).cuda()
+        if not torch.equal(got, want):
+            raise AssertionError(f"arbitrate edge case L {L} shift {shift}: "
+                                 "kernel != plain version")
+        if not torch.equal(got[outside], d_q0[outside]):
+            raise AssertionError(f"arbitrate edge case L {L} shift {shift}: "
+                                 "a byte outside every overlap changed")
+        print(f"  arbitrate edge case: L {L}, arrays {shift} off alignment, "
+              f"{len(pa)} pairs with d from -127 to {L}, every rule branch: "
+              f"equal, {int((got != d_q0).sum())} quals rewritten, none "
+              "outside an overlap", flush=True)
 
 
 # ---------------------------------------------------- phases 3-4: the CLI
@@ -819,9 +1151,13 @@ def build_all(build, sources):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
-                    "earlier commit whose pileup4.cu is timed in turns with "
-                    "this one in phase 2")
+    ap.add_argument("--parent", metavar="DIR", help="a checkout of the "
+                    "commit before the pileup2.cu and arbitrate.cu redesign, "
+                    "whose three kernels are timed in turns with these in "
+                    "phase 2")
+    ap.add_argument("--variants", action="store_true", help="also time "
+                    "pileup2 at other launch shapes (lanes a column group, "
+                    "staging buffer) in phase 2")
     ap.add_argument("--kernels-only", action="store_true", help="stop "
                     "after phase 2 with exit code 3 and no result line")
     ap.add_argument("--busy", action="store_true", help="after each main "
@@ -870,7 +1206,7 @@ def main() -> int:
     print(f"[1] built {', '.join(f'{k} in {v:.2f} s' for k, v in secs.items())}"
           f" for sm_90a, in parallel: {time.perf_counter() - t0:.2f} s "
           f"({build.BUILD_DIR})", flush=True)
-    parent_fn = parent_pileup4(opts.parent) if opts.parent else None
+    parent = parent_kernels(opts.parent) if opts.parent else {}
 
     # ---- phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -878,39 +1214,49 @@ def main() -> int:
     wpad1 = 1_000_448  # round_up(chunkSize 1e6 + 16, 512)
     cslot = 187_648    # the CSLOT ladder's 3/16 bucket of wpad1
     P = 187_904
+    p2_variants = ()
+    if opts.variants:
+        p2_variants = [
+            (f"{sp} lanes a column group, {kb} KB buffer",
+             dict(split=sp, budget_kb=kb))
+            for sp in (1, 2, 4, 8, 16) for kb in (8, 12, 16, 24, 32)]
     print("[2] pileup2: candidate-space group program (Kw=4, P=187904, "
           "Lc4=64)", flush=True)
     cand_in = group_inputs(rng, Kw=4, pitch=P, span=cslot, lo=0,
-                           n_per=reads_per_window, Lq=16, LP=128,
-                           ctx_slot=(P, cslot))
-    r_cand = kernel_vs_plain("candidate space", cand_in, compact=False)
+                           n_per=reads_per_window, Lq=16,
+                           ctx_slot=(P, cslot), all_cg=True)
+    r_cand = kernel_vs_plain("candidate space", cand_in, False,
+                             parent.get("pileup2"), p2_variants)
     del cand_in
     print("[2] pileup2: window-space group program (Kw=4, S=1000960, L=150)",
           flush=True)
     S = wpad1 + 512
     win_in = group_inputs(rng, Kw=4, pitch=S, span=wpad1, lo=-149,
-                          n_per=reads_per_window, Lq=38, LP=256,
+                          n_per=reads_per_window, Lq=38,
                           ctx_slot=(S, wpad1))
-    r_win = kernel_vs_plain("window space", win_in, compact=True)
+    r_win = kernel_vs_plain("window space", win_in, True,
+                            parent.get("pileup2"), p2_variants)
     del win_in
     overflow_case(rng)
+    pileup2_edge_cases(rng)
     print("[2] pileup4 nq: the --minOppositeDepth single-window program "
           "(1 Mb, 240k reads of 150 bp)", flush=True)
     inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
                         qual_mode=False)
-    r_nq = pileup4_vs_plain("pileup4 nq", inp, 4, parent_fn)
+    r_nq = pileup4_vs_plain("pileup4 nq", inp, 4, parent.get("pileup4"))
     print("[2] pileup4 qual: the v2 single-window program (1 Mb, 240k reads "
           "of 150 bp)", flush=True)
     inp = window_inputs(rng, n=reads_per_window, L=150, wpad=wpad1,
                         qual_mode=True)
-    r_q = pileup4_vs_plain("pileup4 qual", inp, 2, parent_fn)
+    r_q = pileup4_vs_plain("pileup4 qual", inp, 2, parent.get("pileup4"))
     del inp
     pileup4_overflow_case()
     pileup4_edge_cases(rng)
     print("[2] arbitrate: the v2 program's pairs (1 Mb, 120k pairs of "
           "150 bp)", flush=True)
     r_ar = arbitrate_vs_plain(rng, P=reads_per_window // 2, L=150,
-                              span=wpad1)
+                              span=wpad1, parent_fn=parent.get("arbitrate"))
+    arbitrate_edge_cases(rng)
     torch.cuda.empty_cache()
     r_cand["err"] = max(r_cand["err"], r_win["err"])
     results = {"pileup2": r_cand, "pileup4_nq": r_nq, "pileup4_qual": r_q,
@@ -923,7 +1269,13 @@ def main() -> int:
               f"TOP/s), share of bound {r['bound_ms'] / r['ms']:.3f}"
               + (f"; parent commit's kernel {r['parent_ms']:.4f} ms"
                  if "parent_ms" in r else "")
+              + (f"; the bound as computed before, over both mates' whole "
+                 f"rows: {r['old_bytes']} bytes = "
+                 f"{r['old_bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us"
+                 if "old_bytes" in r else "")
               + f"; no library call computes it ({card})", flush=True)
+        if r["bound_ms"] > r["ms"]:
+            raise AssertionError(f"{key}: faster than its bound")
     if opts.kernels_only:
         print("chip_smoke: --kernels-only, stopping after phase 2")
         return 3

@@ -49,7 +49,8 @@
 //      two buffers: the copy of chunk i+1 is in flight while chunk i is
 //      counted. A range starts at any byte, so the copy takes the 16-byte
 //      aligned superset and keeps the offset; pieces that would cross either
-//      end of the array are copied byte by byte instead. There is no row
+//      end of the array are copied byte by byte instead (staging.cuh, shared
+//      with pileup2.cu). There is no row
 //      cap: a range of any size is a loop over chunks, and a tile without
 //      rows copies nothing and still writes its zeros.
 //   2. Only the rows that reach the column. Starts do not decrease, so the
@@ -87,7 +88,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "staging.cuh"
+
 namespace {
+
+using namespace staging;
 
 constexpr int kT = 512;
 constexpr int kA = 1, kC = 2, kG = 4, kTh = 8, kN = 15;
@@ -123,67 +128,6 @@ __constant__ uint64_t kFlagTable[3][2] = {
     {flag_table(0, 0), flag_table(0, 1)},
     {flag_table(1, 0), flag_table(1, 1)},
     {flag_table(2, 0), flag_table(2, 1)}};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Offset in a staging region of the byte at global address a.
-__device__ __forceinline__ int stage_offset(const uint8_t* a) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
-}
-
-// Stage bytes [begin, end) of the array base[0, total) into the 16-byte
-// aligned region dst, byte `begin` landing at dst[stage_offset(base+begin)]:
-// the threads of the block share the 16-byte cp.async pieces of the aligned
-// superset; a piece that is not wholly inside the array is copied byte by
-// byte (only the wanted bytes), so nothing outside the array is read.
-__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* base,
-                                      size_t total, size_t begin, size_t end) {
-  const uintptr_t lo = reinterpret_cast<uintptr_t>(base);
-  const uintptr_t hi = lo + total;
-  const uintptr_t a = lo + begin;
-  const uintptr_t e = lo + end;
-  const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
-  const int pieces = static_cast<int>((e - a0 + 15) >> 4);
-  for (int i = threadIdx.x; i < pieces; i += kT) {
-    const uintptr_t g = a0 + 16 * static_cast<uintptr_t>(i);
-    if (g >= lo && g + 16 <= hi) {
-      cp_async16(dst + 16 * i, reinterpret_cast<const void*>(g));
-    } else {
-      for (int b = 0; b < 16; ++b) {
-        if (g + b >= a && g + b < e) {
-          dst[16 * i + b] = *reinterpret_cast<const uint8_t*>(g + b);
-        }
-      }
-    }
-  }
-}
-
-// First j in [0, n) with st[j] > v (n when there is none); st ascending.
-__device__ __forceinline__ int first_above(const int32_t* st, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (st[mid] > v) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
-}
 
 template <bool kQual, typename OutT>
 __global__ void __launch_bounds__(kT, 4) pileup4_kernel(
@@ -223,11 +167,11 @@ __global__ void __launch_bounds__(kT, 4) pileup4_kernel(
     uint8_t* buf = smem + (c & 1) * buf_bytes;
     const size_t b0 = static_cast<size_t>(ra) * row_bytes;
     const size_t b1 = static_cast<size_t>(rb) * row_bytes;
-    stage(buf, codes, code_total, b0, b1);
-    if (kQual) stage(buf + code_cap, qual, code_total, b0, b1);
+    stage(buf, codes, code_total, b0, b1, kT);
+    if (kQual) stage(buf + code_cap, qual, code_total, b0, b1, kT);
     stage(buf + code_cap * (kQual ? 2 : 1), spos_b,
           static_cast<size_t>(Nb) * 4, static_cast<size_t>(ra) * 4,
-          static_cast<size_t>(rb) * 4);
+          static_cast<size_t>(rb) * 4, kT);
     cp_async_commit();
   };
 
@@ -303,14 +247,10 @@ struct Args {
   int ntiles, Nb, Lc, row_bytes, chunk_rows, W, out_stride, nch, min_phred;
 };
 
-inline int round16(int v) { return (v + 15) & ~15; }
-
 template <bool kQual, typename OutT>
 int launch(const Args& a, uint32_t cap, cudaStream_t s) {
-  // a region holds its rows, up to 15 bytes of offset in front and up to
-  // 15 of the last piece behind
-  const int code_cap = round16(a.chunk_rows * a.row_bytes) + 32;
-  const int spos_cap = round16(a.chunk_rows * 4) + 32;
+  const int code_cap = region_bytes(a.chunk_rows * a.row_bytes);
+  const int spos_cap = region_bytes(a.chunk_rows * 4);
   const int smem = 2 * (code_cap * (kQual ? 2 : 1) + spos_cap);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = pileup4_kernel<kQual, OutT>;

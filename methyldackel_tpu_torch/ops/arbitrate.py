@@ -9,12 +9,13 @@ qual-gated pileup (``ops.pileup4``, qual mode) then reads.
 ``arbitrate_reference`` is its plain PyTorch version; the wrapper takes it
 only for tensors on the CPU.
 
-Rows are unshifted ``[Nb, L]``; pair p's mates are rows ``pa[p]`` (the
-smaller aligned start) and ``pb[p]``, ``code[p]`` their aligned-start shift
-in blocks of 128 (0-2), or 3 for a pair left alone. Base i of a faces base
-``i - (pos_b - pos_a)`` of b, ``pos_b - pos_a = 128*code + phase_b -
-phase_a`` with the phases from the ``shp`` bytes. A read is in at most one
-pair.
+Rows are unshifted ``[Nb, L]`` and carry their start: ``spos`` int32 [Nb]
+holds ``2 * start + parity`` (``host_prep.row_spos``, the table the pileup
+reads too). Pair p's mates are rows ``pa[p]`` and ``pb[p]``; the host lists
+only the pairs to arbitrate and fixes the roles
+(``host_prep.v2_pair_tables``): b wins a qual tie on the same base. Base i
+of a faces base ``i - d`` of b, ``d = start_b - start_a`` (negative when b
+starts left of a). A read is in at most one pair.
 """
 from __future__ import annotations
 
@@ -39,22 +40,19 @@ def _boost(q):
     return (q + q // 5) & 0xFF
 
 
-def arbitrate_reference(seq, qual, shp, pa, pb, code):
+def arbitrate_reference(seq, qual, spos, pa, pb):
     """Plain PyTorch version of ``arbitrate`` (same arguments; rewrites
     ``qual`` in place and returns it). Mirrors ``_arb_kernel`` and its XLA
     twin ``device.arbitrate_prealigned`` on the shared positions."""
     L = seq.shape[1]
-    ok = torch.nonzero(code <= 2).flatten()
-    if ok.numel() == 0 or L == 0:
+    if pa.numel() == 0 or L == 0:
         return qual
     i = torch.arange(L, device=seq.device)
     step = max(1, _CHUNK_ELEMS // L)
-    for p0 in range(0, ok.numel(), step):
-        sel = ok[p0 : p0 + step]
-        a = pa[sel].long()
-        b = pb[sel].long()
-        d = 128 * code[sel].long() + (shp[b].long() & 127) \
-            - (shp[a].long() & 127)
+    for p0 in range(0, pa.numel(), step):
+        a = pa[p0 : p0 + step].long()
+        b = pb[p0 : p0 + step].long()
+        d = (spos[b].long() >> 1) - (spos[a].long() >> 1)
         j = i[None, :] - d[:, None]
         inb = (j >= 0) & (j < L)
         jc = j.clamp(0, L - 1)
@@ -82,18 +80,18 @@ def arbitrate_reference(seq, qual, shp, pa, pb, code):
 def _kernel_fn():
     fn = load(SOURCE).mdtpu_arbitrate
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def arbitrate(seq, qual, shp, pa, pb, code):
-    """Arbitrate the mate overlaps of the pairs (pa, pb, code) in place.
+def arbitrate(seq, qual, spos, pa, pb):
+    """Arbitrate the mate overlaps of the pairs (pa, pb) in place.
 
-    seq/qual u8 [Nb, L], shp u8 [Nb], pa/pb i32 [P], code u8 [P]. Returns
-    ``qual``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream."""
+    seq/qual u8 [Nb, L], spos i32 [Nb] = 2 * start + parity, pa/pb i32 [P].
+    Returns ``qual``. CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream."""
     global LAUNCHES
     dev = seq.device
     if seq.dim() != 2:
@@ -102,18 +100,18 @@ def arbitrate(seq, qual, shp, pa, pb, code):
     P = pa.shape[0] if pa.dim() == 1 else -1
     _check("seq", seq, torch.uint8, dev, (Nb, L))
     _check("qual", qual, torch.uint8, dev, (Nb, L))
-    _check("shp", shp, torch.uint8, dev, (Nb,))
+    _check("spos", spos, torch.int32, dev, (Nb,))
     _check("pa", pa, torch.int32, dev, (P,))
     _check("pb", pb, torch.int32, dev, (P,))
-    _check("code", code, torch.uint8, dev, (P,))
     if dev.type == "cpu":
-        return arbitrate_reference(seq, qual, shp, pa, pb, code)
+        return arbitrate_reference(seq, qual, spos, pa, pb)
     if dev.type != "cuda":
         raise ValueError(f"arbitrate runs on cpu or cuda, not {dev}")
+    if P == 0 or L == 0:
+        return qual  # nothing to launch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel_fn()(seq.data_ptr(), qual.data_ptr(), shp.data_ptr(),
-                      pa.data_ptr(), pb.data_ptr(), code.data_ptr(), P, L,
-                      stream)
+    rc = _kernel_fn()(seq.data_ptr(), qual.data_ptr(), spos.data_ptr(),
+                      pa.data_ptr(), pb.data_ptr(), P, L, stream)
     if rc != 0:
         raise RuntimeError(f"arbitrate kernel launch failed: cudaError {rc}")
     with _COUNT_LOCK:

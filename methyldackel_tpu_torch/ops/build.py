@@ -3,14 +3,16 @@
 Each kernel source under ``methyldackel_tpu_torch/csrc/`` has a plain C
 interface. On first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``methyldackel_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded
-with ``ctypes``. The library name carries a hash of the source, so an edited
-source is never served by a stale build. A failed build raises.
+with ``ctypes``. The library name carries a hash of the source and of the
+headers of ``csrc/`` it includes, so an edited source or header is never
+served by a stale build. A failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,12 +41,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Hash of csrc/<source> and, in the order met, of every header of
+    ``csrc_dir`` it includes with quotes (headers of headers too)."""
+    h = hashlib.sha256()
+    todo, seen = [source], set()
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(csrc_dir, name), "rb") as fh:
+            text = fh.read()
+        h.update(name.encode() + b"\0" + text + b"\0")
+        todo += [m.decode() for m in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(csrc_dir, m.decode()))]
+    return h.hexdigest()[:16]
+
+
 def library_path(source: str) -> str:
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{source_digest(source)}.so")
 
 
 def build(source: str) -> str:

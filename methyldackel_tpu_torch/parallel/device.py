@@ -18,8 +18,9 @@ callable, ``.dispatch(...)`` returns a handle with ``.get()``, and
 ``.dispatch_group(cfg, items, pad_to)`` returns a list of handles.
 
 The host work (row classification, pairing, arbitration for v3, packing,
-group tables, bitmaps) is ``host_prep``; hard rows (indels, '=' bases, and
-both mates of a pair holding one) are folded in on the host at finalize.
+row and tile tables, bitmaps) is ``host_prep``; hard rows (indels, '='
+bases, and both mates of a pair holding one) are folded in on the host at
+finalize.
 The numpy arrays go to the device in one place, ``DeviceBackend._launch``:
 the upload, the launches and the copy back into pinned host memory run on
 the backend's own CUDA stream, and an event marks the copy done. ``.get()``
@@ -86,22 +87,20 @@ class _GroupResult:
         return self._vals[k]
 
 
-def fused_window_pregated2(blob, meta, *, Nb, Lq, ntiles, K, LP, sat_bits,
+def fused_window_pregated2(blob, meta, *, Nb, Lq, ntiles, sat_bits,
                            dst=None, out_width=None):
     """Counterpart of ``_fused_window_pregated2`` (and, with sat_bits=32 and
     no compaction, of ``_fused_window_pregated2_wide``): the uploaded
-    ``blob`` u8 = seqpack [Nb*Lq] | shp [Nb] | isc [W/8] | isg [W/8] and
-    ``meta`` i32 = srtk | cntk through one fused kernel launch. Returns
-    ``(out [2, out_width], overflow [1])``."""
-    G = ntiles * K
+    ``blob`` u8 = seqpack [Nb*Lq] | isc [W/8] | isg [W/8] and ``meta`` i32
+    = tlo [ntiles] | thi [ntiles] | spos [Nb] through one fused kernel
+    launch. Returns ``(out [2, out_width], overflow [1])``."""
     nbits = ntiles * T // 8
     a = Nb * Lq
     return pileup2_tiles(
-        blob[:a].view(Nb, Lq), blob[a : a + Nb],
-        meta[:G], meta[G : 2 * G],
-        blob[a + Nb : a + Nb + nbits], blob[a + Nb + nbits : a + Nb + 2 * nbits],
-        ntiles=ntiles, K=K, LP=LP, sat_bits=sat_bits, dst=dst,
-        out_width=out_width)
+        blob[:a].view(Nb, Lq), meta[2 * ntiles : 2 * ntiles + Nb],
+        meta[:ntiles], meta[ntiles : 2 * ntiles],
+        blob[a : a + nbits], blob[a + nbits : a + 2 * nbits],
+        ntiles=ntiles, sat_bits=sat_bits, dst=dst, out_width=out_width)
 
 
 def fused_window_pregated(blob, meta, *, Nb, Lh, ntiles, sat_bits, dst=None,
@@ -125,9 +124,9 @@ def fused_fast_window(blob, meta, *, Nb, L, P, ntiles, nch, min_phred,
                       sat_bits, dst=None, out_width=None, arbitrated=False):
     """Counterpart of ``_fused_fast_window`` + the ``_fused_window_packed``
     readback (``_fused_window_wide`` with sat_bits=32, no compaction and
-    ``arbitrated``): ``blob`` u8 = seq [Nb*L] | qual [Nb*L] | shp [Nb] |
-    code [P] | isc | isg and ``meta`` i32 = tlo [ntiles] | thi [ntiles] |
-    spos [Nb] | pa [P] | pb [P]. Unless the quals in ``blob`` are
+    ``arbitrated``): ``blob`` u8 = seq [Nb*L] | qual [Nb*L] | isc | isg and
+    ``meta`` i32 = tlo [ntiles] | thi [ntiles] | spos [Nb] | pa [P] | pb [P]
+    (the P pairs to arbitrate). Unless the quals in ``blob`` are
     ``arbitrated`` already, the pairs' overlaps are arbitrated in place
     first (one launch), then the qual-gated pileup runs (one launch).
     Returns ``(out [nch, out_width], overflow [1])``."""
@@ -135,14 +134,14 @@ def fused_fast_window(blob, meta, *, Nb, L, P, ntiles, nch, min_phred,
     a = Nb * L
     seq = blob[:a].view(Nb, L)
     qual = blob[a : 2 * a].view(Nb, L)
-    shp = blob[2 * a : 2 * a + Nb]
-    b0 = 2 * a + Nb + P
+    b0 = 2 * a
     m0 = 2 * ntiles + Nb
+    spos = meta[2 * ntiles : m0]
     if not arbitrated:
-        arbitrate(seq, qual, shp, meta[m0 : m0 + P], meta[m0 + P : m0 + 2 * P],
-                  blob[2 * a + Nb : b0])
+        arbitrate(seq, qual, spos, meta[m0 : m0 + P],
+                  meta[m0 + P : m0 + 2 * P])
     return pileup4_tiles(
-        seq, meta[2 * ntiles : m0], meta[:ntiles], meta[ntiles : 2 * ntiles],
+        seq, spos, meta[:ntiles], meta[ntiles : 2 * ntiles],
         blob[b0 : b0 + nbits], blob[b0 + nbits : b0 + 2 * nbits],
         ntiles=ntiles, nch=nch, sat_bits=sat_bits, dst=dst,
         out_width=out_width, qual=qual, min_phred=min_phred)
@@ -414,21 +413,18 @@ class DeviceBackend:
 
         if nch == 2:
             Lq = (L + 3) // 4
-            LP = hp.round_up(max(4 * Lq, 128), 128)
-            K = (T + LP) // 128
-            aligned = f_pos - (f_pos % 128)
-            order = np.argsort(aligned, kind="stable")
-            srtk, cntk = hp.group_tables(aligned[order], ntiles, K, LP)
             seqpack = np.zeros((n, Lq), np.uint8)
             pos_p = np.zeros(n, np.int32)
             parity_p = np.zeros(n, np.uint8)
             if n:
-                hp.pack2_rows(seq, qual, rows[order], pos, st, Lq, win_start,
+                hp.pack2_rows(seq, qual, rows, pos, st, Lq, win_start,
                               min_phred, out=(seqpack, pos_p, parity_p))
+            seqpack, spos, tlo, thi = hp.packed_tables(seqpack, pos_p,
+                                                       parity_p, ntiles)
             program = functools.partial(fused_window_pregated2, Nb=n, Lq=Lq,
-                                        ntiles=ntiles, K=K, LP=LP)
-            blob = [seqpack, hp.shp_bytes(pos_p, parity_p)]
-            meta = [srtk, cntk]
+                                        ntiles=ntiles)
+            blob = [seqpack]
+            meta = [tlo, thi, spos]
         else:
             Lh = (L + 1) // 2
             order, spos, tlo, thi = hp.window_tables(f_pos, st[rows] & 1,
@@ -475,15 +471,13 @@ class DeviceBackend:
         f_pos = f_pos[order]
         al_s = f_pos - (f_pos % 128)
         st_s = st[src]
-        shp = hp.shp_bytes(f_pos.astype(np.int32),
-                           (st_s & 1).astype(np.uint8))
 
         # pairs of simple rows in the sorted frame (device.py:2613-2623)
         frame = np.full(len(hard), -1, np.int64)
         frame[src] = np.arange(n)
         sp = np.asarray(pair_simple, bool)
-        pa, pb, code = hp.v2_pair_tables(al_s, st_s, frame[a_np[sp]],
-                                         frame[b_np[sp]])
+        pa, pb = hp.v2_pair_tables(al_s, st_s, frame[a_np[sp]],
+                                   frame[b_np[sp]])
         P = len(pa)
         if P and np.bincount(np.concatenate([pa, pb]), minlength=n).max() > 1:
             raise ValueError("a read is in more than one mate pair")
@@ -500,7 +494,7 @@ class DeviceBackend:
             # the quals in the blob were arbitrated by the first launch
             return program(b, m, sat_bits=32, arbitrated=True)[0]
 
-        fetch = self._launch([seq[src], qual[src], shp, code, isc, isg],
+        fetch = self._launch([seq[src], qual[src], isc, isg],
                              [tlo, thi, spos, pa, pb], program, nch=nch, W=wpad,
                              cand=cand, wide=wide)
         return self._finalize_single(fetch, hard_k, W_fixed, wpad, min_phred,
@@ -609,15 +603,8 @@ class DeviceBackend:
             cnt = csum[np.clip(f_pos + L, 0, wpad1)].astype(np.int64) - s0
             if len(cnt):
                 maxcnt = max(maxcnt, int(cnt.max()))
-            aligned = s0 - (s0 % 128)
-            if len(aligned) < 2 or bool((aligned[1:] >= aligned[:-1]).all()):
-                # coordinate-sorted input: the stable sort is the identity
-                order = slice(None)
-            else:
-                order = np.argsort(aligned, kind="stable")
-            per[k] = {"src": rows[order], "f_pos": f_pos[order],
-                      "s0": s0[order], "cnt": cnt[order],
-                      "aligned": aligned[order], "row0": n_tot}
+            per[k] = {"src": rows, "f_pos": f_pos, "s0": s0, "cnt": cnt,
+                      "row0": n_tot}
             n_tot += len(rows)
         Lc4 = hp.lc_bucket(maxcnt)
         if Lc4 == 0:
@@ -625,15 +612,9 @@ class DeviceBackend:
 
         # group geometry in candidate-slot coordinates
         Lq = Lc4 // 4
-        LP = hp.round_up(max(Lc4, 128), 128)
-        K = (T + LP) // 128
         P = hp.round_up(CSLOT, T)  # slot pitch
         W_tot = Kw * P
         ntiles = W_tot // T
-        al_all = np.concatenate(
-            [p["aligned"] + k * P for k, p in enumerate(per) if p is not None]
-            + [np.zeros(0, np.int64)])
-        srtk, cntk = hp.group_tables(al_all, ntiles, K, LP)
 
         # phase C: pack rows into candidate space + slot bitmaps (mutating
         # from here on: no fallback past this point)
@@ -674,11 +655,14 @@ class DeviceBackend:
             w.clear()  # finalize must not pin the window's big arrays
         del wins, live, per, geo
 
+        # a row starts at its first slot, s0 + k * P: coordinate-sorted
+        # windows give starts that do not decrease across the whole group
+        seqpack, spos, tlo, thi = hp.packed_tables(seqpack, pos_p, parity_p,
+                                                   ntiles)
         fetch = self._launch(
-            [seqpack, hp.shp_bytes(pos_p, parity_p), isc_all, isg_all],
-            [srtk, cntk], functools.partial(
-                fused_window_pregated2, Nb=n_tot, Lq=Lq, ntiles=ntiles, K=K,
-                LP=LP), nch=2, W=W_tot)
+            [seqpack, isc_all, isg_all], [tlo, thi, spos],
+            functools.partial(fused_window_pregated2, Nb=n_tot, Lq=Lq,
+                              ntiles=ntiles), nch=2, W=W_tot)
 
         def finalize():
             cm = fetch()
@@ -702,9 +686,6 @@ class DeviceBackend:
         live = [w for w in wins if not w["empty"]]
         L = live[0]["seq"].shape[1]
         Lq = (L + 3) // 4
-        L4 = 4 * Lq
-        LP = hp.round_up(max(L4, 128), 128)
-        K = (T + LP) // 128
         wpad1 = hp.round_up(W_fixed, T)
         # guard tile between slots: reads near a slot's right edge write up
         # to L-1 columns past it, where no candidate bit is set
@@ -722,16 +703,8 @@ class DeviceBackend:
                 per.append(None)
                 continue
             rows = np.nonzero(~w["hard"])[0]
-            f_pos = (w["pos"][rows] - w["win_start"]).astype(np.int64)
-            aligned = f_pos - (f_pos % 128)
-            order = np.argsort(aligned, kind="stable")
-            per.append({"src": rows[order], "aligned": aligned[order],
-                        "row0": n_tot})
+            per.append({"src": rows, "row0": n_tot})
             n_tot += len(rows)
-        al_all = np.concatenate(
-            [p["aligned"] + k * S for k, p in enumerate(per) if p is not None]
-            + [np.zeros(0, np.int64)])
-        srtk, cntk = hp.group_tables(al_all, ntiles, K, LP)
 
         seqpack = np.zeros((n_tot, Lq), np.uint8)
         pos_p = np.zeros(n_tot, np.int32)
@@ -767,11 +740,15 @@ class DeviceBackend:
         cand = np.nonzero(hp.ctx_mask_np(
             hp.unpack_mask(isc_all, W_tot), hp.unpack_mask(isg_all, W_tot),
             hp.ctx_code(cfg), (S, wpad1)))[0].astype(np.int64)
+        # a row starts at f_pos + k * S (negative in slot 0 for a read that
+        # begins left of its window); the guard tiles get their row ranges
+        # like any tile
+        seqpack, spos, tlo, thi = hp.packed_tables(seqpack, pos_p, parity_p,
+                                                   ntiles)
         fetch = self._launch(
-            [seqpack, hp.shp_bytes(pos_p, parity_p), isc_all, isg_all],
-            [srtk, cntk], functools.partial(
-                fused_window_pregated2, Nb=n_tot, Lq=Lq, ntiles=ntiles, K=K,
-                LP=LP), nch=2, W=W_tot, cand=cand)
+            [seqpack, isc_all, isg_all], [tlo, thi, spos],
+            functools.partial(fused_window_pregated2, Nb=n_tot, Lq=Lq,
+                              ntiles=ntiles), nch=2, W=W_tot, cand=cand)
 
         def finalize():
             cm = fetch()

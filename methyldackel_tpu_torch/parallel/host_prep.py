@@ -4,8 +4,8 @@
 code and imports jax at module scope, so the port carries its own copies of
 the ones the port's window programs run (row classification, mate pairing
 and overlap arbitration, the 2-bit semantic and 4-bit nibble packs, the v2
-pair table, the reference bitmaps, the context candidate mask, the
-offset-group tables) over the same native kernels (``io.native``) and the
+pair table, the reference bitmaps, the context candidate mask, the row and
+tile tables) over the same native kernels (``io.native``) and the
 same numpy fallbacks.
 
 Not carried over: the shape-bucket high-water floors, the row-count
@@ -166,12 +166,14 @@ def prep_v2_rows(cfg, batch, strand_arr, keep, kidx):
 
 
 def v2_pair_tables(al_s, st_s, pa_f, pb_f):
-    """The pair table of ``_fused_dispatch`` (device.py:2613-2623) in the
-    sorted row frame: mate a is the one with the smaller aligned start (a
-    swap only when strictly greater, so pairs in one 128-block keep
-    ``pair_mates_batch`` order: b wins a qual tie on the same base), and
-    ``code`` is the block shift 0-2 when both mates have the same strand
-    parity, else 3 (left alone). Returns (pa int32, pb int32, code u8)."""
+    """The pairs the card arbitrates, of ``_fused_dispatch``
+    (device.py:2613-2623) in the sorted row frame: mate a is the one with
+    the smaller 128-aligned start (a swap only when strictly greater, so
+    pairs in one 128-block keep ``pair_mates_batch`` order: b wins a qual
+    tie on the same base, and b may start left of a), and a pair is listed
+    when both mates have the same strand parity and their aligned starts
+    are 0-2 blocks apart; the others are left alone. Returns (pa, pb) int32,
+    the eligible pairs only."""
     al_s = np.asarray(al_s, np.int64)
     st_s = np.asarray(st_s, np.int64)
     swap = al_s[pa_f] > al_s[pb_f]
@@ -179,8 +181,7 @@ def v2_pair_tables(al_s, st_s, pa_f, pb_f):
     pb = np.where(swap, pa_f, pb_f)
     sh = (al_s[pb] - al_s[pa]) // 128
     elig = (((st_s[pa] - st_s[pb]) & 1) == 0) & (sh >= 0) & (sh <= 2)
-    code = np.where(elig, sh, 3).astype(np.uint8)
-    return pa.astype(np.int32), pb.astype(np.int32), code
+    return pa[elig].astype(np.int32), pb[elig].astype(np.int32)
 
 
 def prep_v3_rows(cfg, batch, strand_arr, keep, kidx):
@@ -246,37 +247,24 @@ def candidates(isc, isg, wpad: int, ctx: int):
     return np.nonzero(mask)[0].astype(np.int64), csum
 
 
-def group_tables(aligned_sorted, ntiles: int, K: int, LP: int):
-    """Offset-group tables over position-sorted rows: group k of tile t holds
-    the rows whose aligned start is t*T - LP + 128*k. Returns int32
-    (srtk, cntk) [ntiles*K]."""
-    bounds = (np.arange(ntiles)[:, None] * T - LP
-              + 128 * np.arange(K + 1)[None, :])
-    flat = np.searchsorted(aligned_sorted, bounds.reshape(-1), side="left")
-    flat = flat.reshape(ntiles, K + 1)
-    srtk = flat[:, :K].astype(np.int32).reshape(-1)
-    cntk = np.diff(flat, axis=1).astype(np.int32).reshape(-1)
-    return srtk, cntk
-
-
 def row_spos(start, parity) -> np.ndarray:
-    """One int32 per row of the 4-channel programs: 2 * start + parity, the
-    window column of the row's first code (may be negative) and its strand
-    parity in bit 0."""
+    """One int32 per row of the window programs: 2 * start + parity, the
+    column of the row's first code (may be negative) and its strand parity
+    in bit 0."""
     return (2 * np.asarray(start, np.int64)
             + (np.asarray(parity, np.int64) & 1)).astype(np.int32)
 
 
 def tile_rows(start_sorted, ntiles: int, Lc: int):
-    """Per-tile row ranges of the 4-channel programs over rows sorted by
-    their start column: rows [tlo[t], thi[t]) are those whose Lc codes can
-    reach tile t, t*T - Lc < start < (t+1)*T. Returns int32 (tlo, thi)
-    [ntiles]. The kernel finds each column's rows by a search that relies
-    on the order, so starts that decrease anywhere raise ValueError."""
+    """Per-tile row ranges of the pileup kernels over rows sorted by their
+    start column: rows [tlo[t], thi[t]) are those whose Lc codes can reach
+    tile t, t*T - Lc < start < (t+1)*T. Returns int32 (tlo, thi) [ntiles].
+    The kernels find each column's rows by a search that relies on the
+    order, so starts that decrease anywhere raise ValueError."""
     start = np.asarray(start_sorted, np.int64)
     if len(start) > 1 and bool((start[1:] < start[:-1]).any()):
         raise ValueError("rows are not sorted by their start column: the "
-                         "4-channel pileup needs position-sorted rows")
+                         "pileup kernels need position-sorted rows")
     lo = np.arange(ntiles, dtype=np.int64) * T
     tlo = np.searchsorted(start, lo - Lc, side="right").astype(np.int32)
     thi = np.searchsorted(start, lo + T, side="left").astype(np.int32)
@@ -284,8 +272,8 @@ def tile_rows(start_sorted, ntiles: int, Lc: int):
 
 
 def window_tables(start, parity, ntiles: int, Lc: int):
-    """(order, spos, tlo, thi) of one window's rows for the 4-channel
-    programs: the stable sort by start column (the identity for a
+    """(order, spos, tlo, thi) of one window's rows for the pileup
+    kernels: the stable sort by start column (the identity for a
     coordinate-sorted batch) and the row and tile tables in that order."""
     start = np.asarray(start, np.int64)
     if len(start) < 2 or bool((start[1:] >= start[:-1]).all()):
@@ -383,6 +371,15 @@ def pack2_cand_rows(seq, qual, src, pos, st, Lq: int, win_start: int,
     parity_p[:] = par
 
 
-def shp_bytes(pos_p, parity_p) -> np.ndarray:
-    """One byte per row: low 7 bits the phase pos % 128, bit 7 the parity."""
-    return ((pos_p % 128).astype(np.uint8) | (parity_p << 7)).astype(np.uint8)
+def packed_tables(seqpack, pos_p, parity_p, ntiles: int):
+    """(seqpack, spos, tlo, thi) of a 2-bit pack for ``pileup2_tiles``: the
+    rows in the order of their start column ``pos_p`` (a stable sort; the
+    arrays themselves for coordinate-sorted input, whose starts already do
+    not decrease, also across the slots of a group) with their row and tile
+    tables."""
+    if len(pos_p) > 1 and bool((pos_p[1:] < pos_p[:-1]).any()):
+        order = np.argsort(pos_p, kind="stable")
+        seqpack = seqpack[order]
+        pos_p, parity_p = pos_p[order], parity_p[order]
+    tlo, thi = tile_rows(pos_p, ntiles, 4 * seqpack.shape[1])
+    return seqpack, row_spos(pos_p, parity_p), tlo, thi

@@ -18,7 +18,9 @@ from methyldackel_tpu_torch.ops import pileup as tpk
 from methyldackel_tpu_torch.ops import pileup4 as tp4
 from methyldackel_tpu_torch.parallel import host_prep as hp
 
-from chip_smoke import _to_cuda, pileup4_edge_inputs
+from chip_smoke import (ARBITRATE_EDGE_CASES, PILEUP2_EDGE_CASES, _to_cuda,
+                        arbitrate_edge_inputs, pileup2_edge_inputs,
+                        pileup4_edge_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 512
@@ -30,20 +32,18 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lq,LP", [(38, 256), (16, 128)])
-def test_kernel_matches_plain_on_card(Lq, LP):
+@pytest.mark.parametrize("Lq", [38, 16])
+def test_kernel_matches_plain_on_card(Lq):
     """All three widths, dense and compacted, rows straddling both ends."""
     _need_card()
     rng = np.random.default_rng(Lq)
     ntiles, n = 16, 4000
-    K = (T + LP) // 128
     W = ntiles * T
     f_pos = np.sort(rng.integers(-4 * Lq - 130, W + 40, n))
-    srtk, cntk = hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    tlo, thi = hp.tile_rows(f_pos, ntiles, 4 * Lq)
     host = (rng.integers(0, 256, (n, Lq), dtype=np.uint8),
-            hp.shp_bytes(f_pos.astype(np.int32),
-                         rng.integers(0, 2, n).astype(np.uint8)),
-            srtk, cntk, rng.integers(0, 256, W // 8, dtype=np.uint8),
+            hp.row_spos(f_pos, rng.integers(0, 2, n)), tlo, thi,
+            rng.integers(0, 256, W // 8, dtype=np.uint8),
             rng.integers(0, 256, W // 8, dtype=np.uint8))
     args = [torch.from_numpy(a).cuda() for a in host]
     cand = np.sort(rng.choice(W, W // 7, replace=False))
@@ -52,7 +52,7 @@ def test_kernel_matches_plain_on_card(Lq, LP):
     for sat in (8, 16, 32):
         for extra in ({}, dict(dst=torch.from_numpy(dst).cuda(),
                                out_width=len(cand))):
-            kw = dict(ntiles=ntiles, K=K, LP=LP, sat_bits=sat, **extra)
+            kw = dict(ntiles=ntiles, sat_bits=sat, **extra)
             before = tpk.LAUNCHES
             got, gov = tpk.pileup2_tiles(*args, **kw)
             want, wov = tpk.pileup2_tiles_reference(*args, **kw)
@@ -61,6 +61,34 @@ def test_kernel_matches_plain_on_card(Lq, LP):
             assert torch.equal(got.view(torch.uint8).cpu(),
                                want.view(torch.uint8).cpu())
             assert int(gov) == int(wov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,shift,chunk,split", PILEUP2_EDGE_CASES)
+def test_pileup2_edge_cases_on_card(Lq, shift, chunk, split):
+    """The edge cases of chip_smoke.py's phase 2 against the kernel: arrays
+    off 16-byte alignment, a tile range of several chunks, forced small
+    chunks, 1 to 16 lanes a column group, tiles without rows, a last tile whose
+    tail has no output slot, a 5,000-row spike on one column (u8 flags the
+    overflow, u16 and u32 are exact), rows of 38, 16, 9 and 1 bytes."""
+    _need_card()
+    rng = np.random.default_rng(200 + Lq + shift)
+    args, kw = pileup2_edge_inputs(rng, Lq=Lq, shift=shift)
+    d_args = [_to_cuda(a, shift if i < 2 else 0) for i, a in enumerate(args)]
+    if shift:
+        assert d_args[0].data_ptr() % 16 and d_args[1].data_ptr() % 16
+    compact = dict(dst=kw["dst"].cuda(), out_width=kw["out_width"])
+    for sat, flag in ((8, 1), (16, 0), (32, 0)):
+        for extra in ({}, compact):
+            k = dict(ntiles=kw["ntiles"], sat_bits=sat, **extra)
+            got, gov = tpk.pileup2_tiles(*d_args, chunk_rows=chunk,
+                                         split=split, **k)
+            want, wov = tpk.pileup2_tiles_reference(*d_args, **k)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            assert int(gov) == int(wov) == flag
+    cpu, _ = tpk.pileup2_tiles(*args, sat_bits=32, **kw)
+    assert torch.equal(got.cpu().view(torch.uint8), cpu.view(torch.uint8))
 
 
 def _bytes_equal(got, want):
@@ -161,30 +189,31 @@ def test_pileup_window_on_card_matches_cpu():
 
 @pytest.mark.cuda
 def test_arbitrate_matches_plain_on_card():
-    """Pairs at block shifts 0-2 and code 3, N bases, ties, quals to 255,
-    rewritten in place."""
+    """Pairs 0-329 apart (some beyond two blocks or on different strand
+    parities: not listed), N bases, code 0, ties, quals to 255, rewritten
+    in place."""
     _need_card()
     rng = np.random.default_rng(3)
     P, L = 3000, 150
     n = 2 * P
     f_pos = np.sort(rng.integers(0, 200_000, n)).astype(np.int64)
     f_pos[1::2] = f_pos[0::2] + rng.integers(0, 330, P)
-    order = np.argsort(f_pos - f_pos % 128, kind="stable")
+    order = np.argsort(f_pos, kind="stable")
     frame = np.empty(n, np.int64)
     frame[order] = np.arange(n)
+    f_pos = f_pos[order]
     st = rng.integers(1, 3, n)
     st[1::2] = st[0::2]
     st[1::9] ^= 3
-    al = (f_pos - f_pos % 128)[order]
-    pa, pb, code = hp.v2_pair_tables(al, st[order], frame[0::2], frame[1::2])
-    assert set(np.unique(code)) == {0, 1, 2, 3}
+    st = st[order]
+    pa, pb = hp.v2_pair_tables(f_pos - f_pos % 128, st, frame[0::2],
+                               frame[1::2])
+    assert 1000 < len(pa) < P
     seq = np.array([1, 2, 4, 8, 15, 0], np.uint8)[
         rng.choice(6, (n, L), p=[0.3, 0.2, 0.2, 0.2, 0.05, 0.05])]
     qual = rng.integers(0, 256, (n, L), dtype=np.uint8)
-    shp = hp.shp_bytes(f_pos[order].astype(np.int32),
-                       (st[order] & 1).astype(np.uint8))
     dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
-           for a in (seq, shp, pa, pb, code)]
+           for a in (seq, hp.row_spos(f_pos, st & 1), pa, pb)]
     q0 = torch.from_numpy(qual).cuda()
     got, want = q0.clone(), q0.clone()
     before = tar.LAUNCHES
@@ -194,6 +223,31 @@ def test_arbitrate_matches_plain_on_card():
     assert tar.LAUNCHES == before + 1
     assert torch.equal(got.cpu(), want.cpu())
     assert int((got != q0).sum()) > 1000
+    none = torch.zeros(0, dtype=torch.int32, device="cuda")
+    tar.arbitrate(dev[0], got, dev[1], none, none)  # nothing to launch
+    assert tar.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,shift", ARBITRATE_EDGE_CASES)
+def test_arbitrate_edge_cases_on_card(L, shift):
+    """The edge cases of chip_smoke.py's phase 2 against the kernel: rows at
+    odd addresses, every mate distance from -127 to L (overlaps of 1, 3, 4,
+    5 ... L bytes at every alignment), every rule branch, ties that b wins;
+    no byte outside a pair's overlap changes."""
+    _need_card()
+    rng = np.random.default_rng(300 + L + shift)
+    (seq, qual, spos, pa, pb), inside = arbitrate_edge_inputs(
+        rng, L=L, shift=shift)
+    d_seq, got = _to_cuda(seq, shift), _to_cuda(qual, shift)
+    rest = [t.cuda() for t in (spos, pa, pb)]
+    want = tar.arbitrate(seq, qual.clone(), spos, pa, pb)  # plain, on the CPU
+    tar.arbitrate(d_seq, got, *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    outside = ~torch.from_numpy(inside)
+    assert torch.equal(got.cpu()[outside], qual[outside])
+    assert int((want != qual).sum()) > 20
 
 
 @pytest.mark.cuda

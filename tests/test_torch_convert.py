@@ -20,6 +20,20 @@ from methyldackel_tpu_torch.io import bam as pbam
 from methyldackel_tpu_torch.parallel.device import make_device_backend
 
 
+def jax_group_tables(aligned_sorted, ntiles, K, LP, T=512):
+    """The JAX package's offset-group tables (``pileup_pallas.py:469-473``,
+    inline there), for its CPU twins: group k of tile t holds the rows whose
+    128-aligned start is t*T - LP + 128*k. Returns int32 (srtk, cntk)
+    [ntiles*K]. The port's kernels take ``host_prep.tile_rows`` instead."""
+    bounds = (np.arange(ntiles)[:, None] * T - LP
+              + 128 * np.arange(K + 1)[None, :])
+    flat = np.searchsorted(aligned_sorted, bounds.reshape(-1), side="left")
+    flat = flat.reshape(ntiles, K + 1)
+    srtk = flat[:, :K].astype(np.int32).reshape(-1)
+    cntk = np.diff(flat, axis=1).astype(np.int32).reshape(-1)
+    return srtk, cntk
+
+
 def _carry(obj, cls, what):
     """A ``cls`` with every field of ``obj`` (dataclass fields and extra
     attributes set on the instance). A field ``cls`` does not know fails."""

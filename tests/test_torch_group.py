@@ -232,3 +232,60 @@ def test_window_without_candidates(monkeypatch, route):
     host = _host_per_window(cfg, _window_items(batch, [0, W], ref_n))
     for g, h in zip(got, host):
         assert g.shape == h.shape and not g.any() and not h[:, :2].any()
+
+
+def _shuffled(item, rng):
+    """The same window with its reads in a random order."""
+    b, st, keep, *rest = item
+    perm = rng.permutation(b.n)
+    fields = {f: getattr(b, f)[perm] for f in (
+        "flag", "tid", "pos", "mapq", "l_qseq", "endpos", "mtid", "mpos",
+        "xg", "nh", "seq", "qual", "refpos")}
+    fields["qname"] = [b.qname[i] for i in perm]
+    return (type(b)(**fields), st[perm], keep[perm], *rest)
+
+
+@pytest.mark.parametrize("candspace", ["1", "0"])
+def test_group_rows_in_any_order(monkeypatch, candspace):
+    """The 2-bit kernel finds a column's rows by a search over exact starts
+    that do not decrease across the whole group. The group programs put the
+    packed rows in that order themselves (nothing to do for
+    coordinate-sorted windows), so windows whose reads come in any order
+    give the same counters."""
+    monkeypatch.setenv("MDTPU_CANDSPACE", candspace)
+    monkeypatch.delenv("MDTPU_FUSED", raising=False)
+    ref_ascii, batch = _mixed_scenario(53)
+    cfg = Config()
+    cfg.chunkSize = W
+    starts = [0, W, 2 * W]
+    rng = np.random.default_rng(5)
+    want = [h.get() for h in _port(cfg).dispatch_group(
+        cfg, _window_items(batch, starts, ref_ascii), pad_to=4)]
+    items = [_shuffled(it, rng)
+             for it in _window_items(batch, starts, ref_ascii)]
+    assert any((np.diff(it[0].pos) < 0).any() for it in items)
+    backend = _port(cfg)
+    got = [h.get() for h in backend.dispatch_group(cfg, items, pad_to=4)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    _assert_host_at_emit(cfg, _window_items(batch, starts, ref_ascii), got)
+    assert backend.host_routed == 0
+
+
+def test_window_programs_shed_the_tpu_layout():
+    """The 2-bit program, the arbitration and the two fused window programs
+    take rows that carry their start: no phase byte, offset groups, K, LP or
+    pair codes in their signatures, and no helper for them in host_prep."""
+    import inspect
+
+    from methyldackel_tpu_torch.ops import arbitrate as ta
+    from methyldackel_tpu_torch.ops import pileup as tpk
+    from methyldackel_tpu_torch.parallel import device as pdev
+    from methyldackel_tpu_torch.parallel import host_prep as hp
+
+    gone = {"shp", "srtk", "cntk", "K", "LP", "code"}
+    for fn in (tpk.pileup2_tiles, tpk.pileup2_tiles_reference, ta.arbitrate,
+               ta.arbitrate_reference, pdev.fused_window_pregated2,
+               pdev.fused_fast_window):
+        assert not gone & set(inspect.signature(fn).parameters), fn.__name__
+    assert not hasattr(hp, "shp_bytes") and not hasattr(hp, "group_tables")

@@ -17,6 +17,7 @@ from methyldackel_tpu_torch.ops import pileup4 as p4
 from methyldackel_tpu_torch.parallel import host_prep as hp
 
 from chip_smoke import pileup4_edge_inputs
+from test_torch_convert import jax_group_tables
 
 T = 512
 CODES = np.array([1, 2, 4, 8, 15, 1, 2, 4, 8, 3, 5, 12], np.uint8)
@@ -49,7 +50,7 @@ def _geometry(L, W):
 
 
 def _tables(f_pos, ntiles, K, LP):
-    return hp.group_tables(f_pos - f_pos % 128, ntiles, K, LP)
+    return jax_group_tables(f_pos - f_pos % 128, ntiles, K, LP)
 
 
 def _port_tables(f_pos, parity, ntiles, Lc):

@@ -170,13 +170,15 @@ def test_coverage_spike_window(monkeypatch, fused, min_opp):
     assert backend.host_routed == 0
 
 
-@pytest.mark.parametrize("fused,min_opp", [("v3", 2), ("v2", 0), ("v2", 3)])
+@pytest.mark.parametrize("fused,min_opp", [("v3", 2), ("v2", 0), ("v2", 3),
+                                           ("v3", 0)])
 def test_unsorted_batch_is_sorted_by_the_dispatch(monkeypatch, fused,
                                                   min_opp):
-    """The 4-channel kernel needs rows sorted by start. The dispatch sorts
+    """The pileup kernels need rows sorted by start. The dispatch sorts
     (the identity for a coordinate-sorted batch), so a batch in any order
-    still equals the host engine; hp.tile_rows itself refuses unsorted
-    starts (tests/test_torch_pileup4.py)."""
+    still equals the host engine, on the 4-channel programs and (v3, no
+    --minOppositeDepth) the 2-bit one; hp.tile_rows itself refuses unsorted
+    starts (tests/test_torch_pileup4.py, tests/test_torch_pileup.py)."""
     monkeypatch.setenv("MDTPU_FUSED", fused)
     rng = np.random.default_rng(83)
     ref_ascii, ref_codes = random_reference(rng, 5000)

@@ -215,3 +215,23 @@ def test_multi_host_extract_is_refused(tmp_path, monkeypatch):
     cfg.nHosts, cfg.hostId = 2, 0
     with pytest.raises(NotImplementedError, match="A.11"):
         run_extract(cfg, [None, None, None])
+
+
+def test_kernel_build_depends_on_included_headers(tmp_path):
+    """The library name carries a hash of the source and of the csrc headers
+    it includes, so that an edit of ``staging.cuh`` rebuilds both pileups."""
+    from methyldackel_tpu_torch.ops import build
+
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "h.cuh"\n')
+    (tmp_path / "other.cu").write_text("int x;\n")
+    (tmp_path / "h.cuh").write_text('#include "deep.cuh"\nint a;\n')
+    (tmp_path / "deep.cuh").write_text("int b;\n")
+    d = str(tmp_path)
+    before = build.source_digest("k.cu", d), build.source_digest("other.cu", d)
+    (tmp_path / "deep.cuh").write_text("int b = 1;\n")
+    after = build.source_digest("k.cu", d), build.source_digest("other.cu", d)
+    assert before[0] != after[0] and before[1] == after[1]
+    for src in ("pileup2.cu", "pileup4.cu"):
+        with open(os.path.join(build.CSRC_DIR, src), "rb") as fh:
+            assert b'#include "staging.cuh"' in fh.read()
+    assert build.library_path("pileup2.cu") != build.library_path("pileup4.cu")
