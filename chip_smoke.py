@@ -47,6 +47,15 @@ printing a result:
    the bytes they store must be equal. With ``--variants`` ``pileup2`` is
    also timed at other launch shapes than its defaults (lanes that share a
    column group, staging buffer).
+   Then the device programs that are torch ops and no kernel
+   (``parallel/programs.py``: ``_mbias_reduce``, ``mbias_device``,
+   ``_perread_reduce``, ``perread_device``, ``arbitrate_device``,
+   ``pileup_device``, ``window_pipeline``): each runs on the card and on the
+   CPU device on the same seeded rows (3,000 reads of 100 bp) and must be
+   equal element for element; then each is timed at one real window
+   (240,000 reads of 150 bp over 1 Mb; CUDA-event median of 5 after a
+   warm-up) beside the bound of its bytes (every input read once, the
+   output written once).
 3. The main paths end to end on a synthetic 2M-read WGBS input, through
    ``extract`` of the port (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every
    window goes to the card): the default extract, ``--minOppositeDepth 5
@@ -58,11 +67,23 @@ printing a result:
    positions. Port and host engine run in turns in this process for reads/s.
    With ``--busy`` each path runs once more under torch.profiler with the
    engine's stage timers on, for the device's busy share of the wall time.
+   Then ``mbias`` (``--txt`` and the SVG files) and ``perRead`` (``-o``) on
+   the same input, once on the card and once with the host engine in this
+   process for reads/s; stdout and every file must be byte-identical to the
+   port's MDTPU_ENGINE=host in its own process, and the backend's reduction
+   must have launched. With ``--busy`` also the default extract under
+   MDTPU_NO_PALLAS=1 (the dense dispatch at real windows).
 4. Side routes on a small input with indel and '=' reads: single-window
    dispatch, the window-space group, CHG+CHH, the 4-channel program, v2,
    v2 with --minOppositeDepth; and a ~900x deep input whose counts overflow
    the u8 readback (u32 refetch, then u16), default and 4-channel. Each
-   byte-identical to the host engine.
+   byte-identical to the host engine. Then the routes of the torch
+   programs: ``extract --keepStrand`` with a stranded BED, ``extract`` on
+   reads of 300 bp and ``extract`` under MDTPU_NO_PALLAS=1 (the dense
+   dispatch; no window may go to the host engine), ``mbias`` with a BED (the
+   program over raw rows) and ``perRead`` on an input with sub-phred bases
+   (rows redone by the host walker); each byte-identical to the host engine
+   with its device program launched.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the card
 line and a JSON line with each kernel's launches, error, times and bound.
@@ -990,11 +1011,158 @@ def arbitrate_edge_cases(rng):
               "outside an overlap", flush=True)
 
 
+# ------------------------------------------- phase 2: the torch programs
+
+def program_cases(rng, n, L):
+    """Seeded inputs of every device program of ``parallel/programs.py`` as
+    CPU tensors: ``n`` reads of ``L`` bp (mate pairs on adjacent rows, mates
+    0 to L-1 apart, one pair in nine on different strand parities, one row
+    in fifty with a 3 bp deletion, bisulfite-converted bases of a random
+    reference, quals 2-41) over a window of 1 Mb at the real depth (240,000
+    reads), narrower for fewer. Returns [(name, fn, args, ops)]; ``ops`` is
+    the count of compares and adds the program does as it is written."""
+    import functools
+
+    import torch
+
+    from methyldackel_tpu_torch.parallel import programs as prog
+
+    W = max(512, -(-n * 1_000_448 // 240_000 // 512) * 512)
+    P = n // 2
+    n = 2 * P
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), W + 2 * L + 8,
+                     p=[0.29, 0.21, 0.21, 0.29])
+    start = np.empty(n, np.int64)
+    start[0::2] = rng.integers(0, W - L, P)
+    start[1::2] = start[0::2] + rng.integers(0, L, P)
+    refpos = (start[:, None] + np.arange(L)[None, :]).astype(np.int32)
+    gap = rng.random(n) < 0.02
+    refpos[gap, L // 2:] += 3
+    ob = np.repeat(rng.random(P) < 0.5, 2)
+    code_of = np.zeros(256, np.uint8)
+    code_of[[65, 67, 71, 84]] = [1, 2, 4, 8]
+    seq = code_of[ref[np.minimum(refpos, len(ref) - 1)]]
+    conv = rng.random((n, L)) < 0.7
+    seq[(seq == 2) & conv & ~ob[:, None]] = 8  # OT: C read as T
+    seq[(seq == 4) & conv & ob[:, None]] = 1   # OB: G read as A
+    qual = rng.integers(2, 42, (n, L), dtype=np.uint8)
+    flag = np.where(ob, np.tile([0x53, 0xA3], P),
+                    np.tile([0x63, 0x93], P)).astype(np.int32)
+    strand = np.where(ob, 2, 1).astype(np.int32)
+    odd_pair = np.repeat(rng.random(P) < 1 / 9, 2)
+    odd_pair[0::2] = False
+    strand[odd_pair] = 3 - strand[odd_pair]
+    flag[odd_pair] ^= 0x10
+    bounds = np.array([2, L - 5, 3, L - 4] * 4, np.int32)
+    abounds = np.array([1, 2, 0, 1] * 4, np.int32)
+    Lq = (L + 3) // 4
+    t = torch.from_numpy
+    seq, qual, refpos, flag, strand = map(t, (seq, qual, refpos, flag, strand))
+    ref = t(ref)
+    pa = torch.arange(0, n, 2)
+    pb = pa + 1
+    keep_read = t(rng.random(n) < 0.97)
+    keep_base = t(rng.random((n, L)) < 0.9)
+    codes = t(rng.integers(0, 256, (n, Lq), dtype=np.uint8))
+    combo = t(rng.integers(0, 8, n).astype(np.uint8))
+    pos = t(start.astype(np.int32))
+    lq = torch.full((n,), L, dtype=torch.int32)
+    xg = torch.zeros(n, dtype=torch.int8)
+    mapq = torch.full((n,), 40, dtype=torch.uint8)
+    ovw = -(-2 * L // 128) * 128
+    return [
+        ("_mbias_reduce", prog._mbias_reduce, (codes, combo), 12 * n * Lq),
+        ("mbias_device", functools.partial(
+            prog.mbias_device, keep_ctx=(1, 1, 1), min_phred=5),
+         (seq, qual, refpos, strand, flag, keep_base, ref, 0, 0, W),
+         30 * n * L),
+        ("_perread_reduce", prog._perread_reduce, (codes,), 12 * n * Lq),
+        ("perread_device", functools.partial(prog.perread_device,
+                                             min_phred=5),
+         (seq, qual, pos, lq, strand, ref, 0, len(ref)), 30 * n * L),
+        ("arbitrate_device", prog.arbitrate_device,
+         (seq, qual, refpos, strand, pa, pb, None, ovw), 16 * P * ovw),
+        ("pileup_device", prog.pileup_device,
+         (seq, qual, refpos, strand, keep_read, None, ref, 0, 0, W, 5),
+         20 * n * L),
+        ("window_pipeline", functools.partial(
+            prog.window_pipeline, wpad=W, ovw=ovw, min_phred=5,
+            min_conv_eff=0.3, use_overlaps=True),
+         (seq, qual, refpos, flag, xg, lq, mapq, keep_read, keep_base, pa,
+          pb, None, ref, t(bounds), t(abounds), 0, 0),
+         50 * n * L + 16 * P * ovw),
+    ]
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def programs_card_vs_cpu(rng, n=3000, L=100):
+    """Every program on the card and on the CPU device on the same rows:
+    equal element for element (integers; the one float, the conversion
+    efficiency inside window_pipeline, only gates reads)."""
+    import torch
+
+    for name, fn, args, _ops in program_cases(rng, n, L):
+        cpu = _as_tuple(fn(*args))
+        gpu = _as_tuple(fn(*[a.cuda() if isinstance(a, torch.Tensor) else a
+                             for a in args]))
+        torch.cuda.synchronize()
+        for c, g in zip(cpu, gpu):
+            if c.dtype != g.dtype or not torch.equal(c, g.cpu()):
+                raise AssertionError(f"{name}: card != CPU device")
+        total = sum(int(c.to(torch.int64).sum()) for c in cpu)
+        if total <= 0:
+            raise AssertionError(f"{name}: the input exercises nothing")
+        print(f"  {name}: card == CPU device on {n} reads of {L} bp "
+              f"({', '.join(str(tuple(c.shape)) for c in cpu)} "
+              f"{cpu[0].dtype}, sum {total})", flush=True)
+
+
+def programs_timed(rng, n=240_000, L=150):
+    """CUDA-event time of every program at one real window, beside the
+    bound of its bytes and operations. Returns {name: dict(ms, bound_ms,
+    bound_by, bytes, peak_mb)}."""
+    import torch
+
+    out = {}
+    card = card_line()
+    for name, fn, args, ops in program_cases(rng, n, L):
+        d_args = [a.cuda() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        res = _as_tuple(fn(*d_args))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = float(np.median(cuda_ms(lambda: fn(*d_args), 5)))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        nbytes = nbytes_of(*[a for a in d_args
+                             if isinstance(a, torch.Tensor)], *res)
+        b_ms, b_by = bound_of(nbytes, ops)
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         peak_mb=peak)
+        print(f"  {name}: {ms:.3f} ms at {n} reads of {L} bp (CUDA events, "
+              f"median of 5; torch ops, no kernel of ours) against a bound "
+              f"of {b_ms * 1e3:.1f} us ({b_by}: {nbytes} bytes, {ops} "
+              f"operations), share of bound {b_ms / ms:.4f}; peak device "
+              f"memory above its inputs {peak:.0f} MB ({card})", flush=True)
+        del d_args, res
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------- phases 3-4: the CLI
 
-def run_port(args, cwd, env):
-    """The port's extract in this process; returns (seconds, backend)."""
+def run_port(args, cwd, env, cmd="extract"):
+    """The port's ``cmd`` (extract, mbias or perRead) in this process;
+    returns (seconds, backend). What mbias and perRead print goes to
+    ``stdout.txt`` in ``cwd``."""
+    import contextlib
+
     from methyldackel_tpu_torch import cli
+    from methyldackel_tpu_torch.engine.mbias import mbias
+    from methyldackel_tpu_torch.engine.perread import perread
 
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -1002,7 +1170,12 @@ def run_port(args, cwd, env):
     os.chdir(cwd)
     try:
         t0 = time.perf_counter()
-        rc, backend = cli.extract(args)
+        if cmd == "extract":
+            rc, backend = cli.extract(args)
+        else:
+            with open("stdout.txt", "w") as fh, \
+                    contextlib.redirect_stdout(fh):
+                rc, backend = {"mbias": mbias, "perRead": perread}[cmd](args)
         dt = time.perf_counter() - t0
     finally:
         os.chdir(here)
@@ -1012,12 +1185,12 @@ def run_port(args, cwd, env):
             else:
                 os.environ[k] = v
     if rc != 0:
-        raise RuntimeError(f"port extract {args} returned {rc}")
+        raise RuntimeError(f"port {cmd} {args} returned {rc}")
     return dt, backend
 
 
-def busy_share(name, args, cwd, env):
-    """One more run of the port's extract under torch.profiler (device
+def busy_share(name, args, cwd, env, cmd="extract"):
+    """One more run of the port's ``cmd`` under torch.profiler (device
     activities only) with the engine's stage timers on: prints the device's
     busy time (the union of its kernel and copy intervals) beside the wall
     time, the largest device items by name, and the stage sums (the
@@ -1032,7 +1205,7 @@ def busy_share(name, args, cwd, env):
     profiling.STATS.enabled = True
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall, _ = run_port(args, cwd, env)
+            wall, _ = run_port(args, cwd, env, cmd)
     finally:
         profiling.STATS.enabled = False
     spans, by_name = [], {}
@@ -1060,19 +1233,40 @@ def busy_share(name, args, cwd, env):
           + f") ({card_line()})", flush=True)
 
 
-def run_host(args, cwd):
+def run_host(args, cwd, cmd="extract"):
     """The port's exact host engine (MDTPU_ENGINE=host), in its own
-    process."""
+    process. What mbias and perRead print goes to ``stdout.txt`` in
+    ``cwd``."""
     env = dict(os.environ, MDTPU_ENGINE="host",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "methyldackel_tpu_torch.cli",
-                          "extract", *args], cwd=cwd, env=env,
+                          cmd, *args], cwd=cwd, env=env,
                          capture_output=True, text=True)
     dt = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"host extract failed: {res.stderr[-2000:]}")
+        raise RuntimeError(f"host {cmd} failed: {res.stderr[-2000:]}")
+    if cmd != "extract":
+        with open(os.path.join(cwd, "stdout.txt"), "w") as fh:
+            fh.write(res.stdout)
     return dt
+
+
+def same_dirs(a_dir, b_dir):
+    """Both directories hold the same files with the same bytes, and their
+    output is not empty. Returns the names."""
+    names = sorted(os.listdir(a_dir))
+    if names != sorted(os.listdir(b_dir)):
+        raise AssertionError(f"{a_dir} and {b_dir} hold different files")
+    size = 0
+    for nm in names:
+        a = open(os.path.join(a_dir, nm), "rb").read()
+        if a != open(os.path.join(b_dir, nm), "rb").read():
+            raise AssertionError(f"{nm} differs between {a_dir} and {b_dir}")
+        size += len(a)
+    if size < 1000:
+        raise AssertionError(f"{a_dir} holds no output")
+    return names
 
 
 def same_outputs(a_dir, b_dir, names):
@@ -1198,6 +1392,10 @@ def main() -> int:
           f"cuda {torch.version.cuda}; nvcc {build.nvcc_path()}; triton "
           f"installed: {importlib.util.find_spec('triton') is not None}; "
           f"native host library: {native.available()}", flush=True)
+    if not native.available():
+        # without it mbias and perRead would time their raw-row programs
+        # unawares
+        raise RuntimeError("csrc/build/libmdtpu_native.so did not load")
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from source
     if opts.ptxas:
         build.NVCC_FLAGS += ["-Xptxas", "-v"]
@@ -1276,6 +1474,11 @@ def main() -> int:
               + f"; no library call computes it ({card})", flush=True)
         if r["bound_ms"] > r["ms"]:
             raise AssertionError(f"{key}: faster than its bound")
+    print("[2] torch programs (parallel/programs.py) on the card against "
+          "the CPU device", flush=True)
+    programs_card_vs_cpu(rng)
+    print("[2] torch programs at one real window", flush=True)
+    program_times = programs_timed(rng)
     if opts.kernels_only:
         print("chip_smoke: --kernels-only, stopping after phase 2")
         return 3
@@ -1352,6 +1555,58 @@ def main() -> int:
         if excluded <= 0:
             raise AssertionError("--minOppositeDepth excluded nothing")
 
+        subcommands = (
+            ("mbias", ["--txt", fa, bam, "mb"]),
+            ("perRead", ["-o", "reads.txt", fa, bam]),
+        )
+        for cmd, args in subcommands:
+            dirs = [os.path.join(WORK, f"{cmd}_{d}")
+                    for d in ("port", "host", "hostin")]
+            for d in dirs:
+                os.makedirs(d)
+            t_cuda, backend = run_port(args, dirs[0],
+                                       {"MDTPU_ENGINE": "cuda"}, cmd)
+            t_host, _ = run_port(args, dirs[2], {"MDTPU_ENGINE": "host"}, cmd)
+            dt_ref = run_host(args, dirs[1], cmd)
+            names = same_dirs(dirs[0], dirs[1])
+            same_dirs(dirs[2], dirs[1])
+            print(f"[3] {cmd}, 2,000,000 reads of 150 bp: port cuda "
+                  f"{2e6 / t_cuda:,.0f} reads/s ({t_cuda:.2f} s; device "
+                  f"program launches {backend.launches}"
+                  + (f", rows redone on the host {backend.rows_redone}"
+                     if cmd == "perRead" else "")
+                  + f"); host engine in process {2e6 / t_host:,.0f} reads/s "
+                  f"({t_host:.2f} s); the port's CLI process with "
+                  f"MDTPU_ENGINE=host {dt_ref:.2f} s = {2e6 / dt_ref:,.0f} "
+                  f"reads/s; {', '.join(names)} byte-identical ({card})",
+                  flush=True)
+            if backend.launches["reduce"] <= 0 \
+                    or backend.launches["legacy"] != 0:
+                raise AssertionError(f"{cmd} did not take the packed path "
+                                     "on the card")
+            if opts.busy:
+                busy_share(cmd, args, dirs[0], {"MDTPU_ENGINE": "cuda"}, cmd)
+        if opts.busy:
+            # the dense dispatch at real windows: the default extract with
+            # the tiled kernels switched off
+            d_dense = os.path.join(WORK, "dense_port")
+            os.makedirs(d_dense)
+            args = [fa, bam, "-o", "out"]
+            env = {"MDTPU_ENGINE": "cuda", "MDTPU_STEAL": "0",
+                   "MDTPU_NO_PALLAS": "1"}
+            t_dense, backend = run_port(args, d_dense, env)
+            same_outputs(d_dense, os.path.join(WORK, "host0"),
+                         ["out_CpG.bedGraph"])
+            print(f"[3] extract under MDTPU_NO_PALLAS=1 (the dense dispatch), "
+                  f"2,000,000 reads of 150 bp: port cuda "
+                  f"{2e6 / t_dense:,.0f} reads/s ({t_dense:.2f} s; device "
+                  f"program launches {backend.launches}, host-routed windows "
+                  f"{backend.host_routed}); out_CpG.bedGraph byte-identical "
+                  f"to the host engine's ({card})", flush=True)
+            if backend.launches["dense"] <= 0 or backend.host_routed != 0:
+                raise AssertionError("the dense route missed its program")
+            busy_share("dense dispatch", args, d_dense, env)
+
         # ---- phase 4: side routes
         side = os.path.join(WORK, "side")
         os.makedirs(side)
@@ -1405,6 +1660,60 @@ def main() -> int:
                 raise AssertionError(f"side route {name} missed the card")
             if src == deep and be._sat_bits != 16:
                 raise AssertionError(f"{name} did not overflow u8")
+
+        # the routes of the torch programs: each names the count that must
+        # have risen on its backend
+        long_reads = os.path.join(WORK, "long")
+        os.makedirs(long_reads)
+        write_synthetic_input(long_reads, 600, 300, 30000, seed=11)
+        bed = os.path.join(side, "regions.bed")
+        with open(bed, "w") as fh:
+            fh.write("chrS\t500\t9000\ta\t0\t+\n"
+                     "chrS\t11000\t19000\tb\t0\t-\n"
+                     "chrS\t21000\t29500\tc\t0\t.\n")
+        chunk = ["--chunkSize", "5000"]
+        bam_side = ["../g.fa", "../r.bam"]
+        torch_routes = (
+            ("extract --keepStrand with a stranded BED", "extract", side, {},
+             [*chunk, "-l", bed, "--keepStrand", *bam_side, "-o", "o"],
+             "dense"),
+            ("extract on reads of 300 bp", "extract", long_reads, {},
+             [*chunk, "../sim.fa", "../sim.bam", "-o", "o"], "dense"),
+            ("extract under MDTPU_NO_PALLAS=1", "extract", side,
+             {"MDTPU_NO_PALLAS": "1"}, [*chunk, *bam_side, "-o", "o"],
+             "dense"),
+            ("mbias with a BED", "mbias", side, {},
+             ["--txt", *chunk, "-l", bed, "--keepStrand", *bam_side, "mb"],
+             "legacy"),
+            ("perRead with sub-phred bases", "perRead", side, {},
+             [*chunk, *bam_side], "reduce"),
+        )
+        for k, (name, cmd, src, env, a, key) in enumerate(torch_routes):
+            d_port = os.path.join(src, f"torch{k}_port")
+            d_host = os.path.join(src, f"torch{k}_host")
+            os.makedirs(d_port)
+            os.makedirs(d_host)
+            reset_counts()
+            _, be = run_port(a, d_port, {"MDTPU_ENGINE": "cuda",
+                                         "MDTPU_STEAL": "0", **env}, cmd)
+            counts = read_counts()
+            run_host(a, d_host, cmd)
+            names = same_dirs(d_port, d_host)
+            print(f"[4] {name}: byte-identical to the host engine "
+                  f"({', '.join(names)}; device program launches "
+                  f"{be.launches}, kernel launches {counts}"
+                  + (f", host-routed {be.host_routed}" if cmd == "extract"
+                     else "")
+                  + (f", rows redone on the host {be.rows_redone}"
+                     if cmd == "perRead" else "") + ")", flush=True)
+            if be.launches[key] <= 0 or getattr(be, "host_routed", 0) != 0:
+                raise AssertionError(f"side route {name} missed its device "
+                                     "program")
+            if key == "dense" and any(counts.values()):
+                raise AssertionError(f"side route {name} launched a tiled "
+                                     "kernel")
+            if cmd == "perRead" and be.rows_redone <= 0:
+                raise AssertionError(f"{name}: no row was redone")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -1,12 +1,13 @@
 """Command line of the port: ``python -m methyldackel_tpu_torch.cli
-<extract|mergeContext> ...``, the option surface of ``methyldackel_tpu/cli.py``
+<extract|mbias|mergeContext|perRead> ...``, the option surface of ``methyldackel_tpu/cli.py``
 (whose getopt work-alike, option tables, usage text and mappability loaders
 are copied here).
 
 ``extract`` runs the port's ``engine.extract.run_extract`` with the port's
 backend (``MDTPU_ENGINE``: ``cuda``, the default, or ``host``; see
-``parallel.select_backend``). ``mergeContext`` is host-only. ``mbias`` and
-``perRead`` are not ported yet.
+``parallel.select_backend``). ``mbias`` (``engine.mbias``) and ``perRead``
+(``engine.perread``) pick their backends under the same rule.
+``mergeContext`` is host-only.
 """
 from __future__ import annotations
 
@@ -456,14 +457,18 @@ def _load_bbm_mappability(cfg):
 
 def usage_main():
     sys.stderr.write(
-        "methyldackel-tpu-torch: the PyTorch/CUDA port of methyldackel-tpu.\n"
+        "methyldackel-tpu-torch: the PyTorch/CUDA port of methyldackel-tpu, a "
+        "tool for\nprocessing bisulfite sequencing alignments.\n"
+        f"Version: {REFERENCE_VERSION} (methyldackel_tpu_torch {__version__})\n"
         "Usage: methyldackel-tpu-torch <command> [options]\n\n"
         "Commands:\n"
-        "    extract  Extract methylation metrics from an alignment file in "
-        "BAM/CRAM\n             format.\n"
-        "    mergeContext   Combine single Cytosine metrics into per-CpG/CHG "
-        "metrics.\n"
-        "    mbias, perRead  Not ported yet: use methyldackel-tpu.\n")
+        "    mbias    Determine the position-dependent methylation bias in a dataset,\n"
+        "             producing diagnostic SVG images.\n"
+        "    extract  Extract methylation metrics from an alignment file in BAM/CRAM\n"
+        "             format.\n"
+        "    mergeContext   Combine single Cytosine metrics into per-CpG/CHG metrics.\n"
+        "    perRead  Generate a per-read methylation summary.\n"
+    )
 
 
 def main(argv=None) -> int:
@@ -477,14 +482,18 @@ def main(argv=None) -> int:
         return 0
     if cmd == "extract":
         return extract_main(argv[1:])
+    if cmd == "mbias":
+        from .engine.mbias import mbias_main
+
+        return mbias_main(argv[1:])
     if cmd == "mergeContext":
         from .engine.merge_context import merge_context_main
 
         return merge_context_main(argv[1:])
-    if cmd in ("mbias", "perRead"):
-        sys.stderr.write(f"{cmd} is not ported to methyldackel_tpu_torch yet; "
-                         "run it with methyldackel-tpu.\n")
-        return 2
+    if cmd == "perRead":
+        from .engine.perread import perread_main
+
+        return perread_main(argv[1:])
     sys.stderr.write("Unknown command!\n")
     usage_main()
     return -1

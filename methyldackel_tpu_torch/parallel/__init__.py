@@ -1,22 +1,26 @@
 """Backend selection for the port (``methyldackel_tpu/parallel/__init__.py``
-``select_backend``, under the same ``MDTPU_ENGINE`` variable):
+``select_backend``, ``select_mbias_backend``, ``select_perread_backend``,
+under the same ``MDTPU_ENGINE`` variable), one rule for all three
+subcommands:
 
 - ``cuda`` (the default, also when the variable is unset): the card; raises
   when ``torch.cuda.is_available()`` is false. The port never moves a run to
   the CPU by itself.
-- ``host``: None, the port's exact numpy engine (``engine.extract``).
+- ``host``: None, the port's exact numpy engine (``engine.extract``,
+  ``engine.mbias``, ``engine.perread``).
 
 Anything else, ``auto`` included, is rejected. The port's device programs
 run on the CPU (each kernel's plain PyTorch version) only when a caller
 builds the backend on it: ``make_device_backend(cfg, "cpu")``, which is what
-``cli.extract(argv, device="cpu")`` does.
+``cli.extract(argv, device="cpu")`` does (likewise ``engine.mbias.mbias`` and
+``engine.perread.perread``).
 """
 from __future__ import annotations
 
 import os
 
 
-def select_backend(cfg):
+def _select(cfg, make_fn_name):
     mode = os.environ.get("MDTPU_ENGINE", "cuda")
     if mode == "host":
         return None
@@ -30,8 +34,23 @@ def select_backend(cfg):
             "the port runs on a CUDA device, but torch.cuda.is_available() "
             "is false. Set MDTPU_ENGINE=host for the exact numpy engine, or "
             "pass the CPU device explicitly (cli.extract(argv, device='cpu')"
-            " / make_device_backend(cfg, 'cpu')) to run the kernels' plain "
+            f" / {make_fn_name}(cfg, 'cpu')) to run the kernels' plain "
             "PyTorch versions.")
-    from .device import make_device_backend
+    from . import device
 
-    return make_device_backend(cfg, "cuda")
+    return getattr(device, make_fn_name)(cfg, "cuda")
+
+
+def select_backend(cfg):
+    """The compute backend of ``extract`` (None: the host engine)."""
+    return _select(cfg, "make_device_backend")
+
+
+def select_mbias_backend(cfg):
+    """Device compute for the mbias counter tensor (None: host numpy)."""
+    return _select(cfg, "make_mbias_backend")
+
+
+def select_perread_backend(cfg):
+    """Device tallies for perRead's gapless rows (None: host numpy)."""
+    return _select(cfg, "make_perread_backend")

@@ -1,4 +1,5 @@
-"""Window programs of ``extract`` on the card.
+"""The device backends: the window programs of ``extract`` and the
+backends of ``mbias`` and ``perRead``.
 
 Port of the window programs of ``methyldackel_tpu/parallel/device.py``:
 
@@ -11,6 +12,11 @@ Port of the window programs of ``methyldackel_tpu/parallel/device.py``:
 - the v2 window program (``MDTPU_FUSED=v2``, ``_fused_dispatch``): mate
   arbitration on the card (``ops.arbitrate``), then the qual-gated 12-count
   program (``ops.pileup4``, qual mode), for NCH=2 and NCH=4;
+- the dense fallback (the slow branch of ``make_device_backend.dispatch``):
+  a window with a BED strand column, reads longer than 256 bp or
+  ``MDTPU_NO_PALLAS=1`` takes one dispatch of ``programs.arbitrate_device``
+  and ``programs.pileup_device`` (torch ops, no hand-written kernel) over
+  all of its rows. No window goes to the host engine;
 
 and ``make_device_backend`` with the contract
 ``engine.extract.run_extract`` drives: the backend is
@@ -26,29 +32,32 @@ the upload, the launches and the copy back into pinned host memory run on
 the backend's own CUDA stream, and an event marks the copy done. ``.get()``
 waits for it on the engine's drain threads.
 
-Windows the port does not serve on the card yet (a BED strand column,
-reads longer than 256 bp, ``MDTPU_NO_PALLAS=1``: the JAX package's dense
-fallback) go to the exact host engine through a counted route:
-``DeviceBackend.host_routed`` counts them and the first one of each reason
-writes a line to stderr.
+``make_mbias_backend`` and ``make_perread_backend`` are the backends of the
+two other subcommands: the host packs 2-bit codes (``io.native``), the
+device reduces them (``programs._mbias_reduce``, ``programs._perread_reduce``)
+and a few KB come back; rows the pack does not take are done by the numpy
+oracle on the host, as in the JAX package, and inputs the pack rejects take
+the programs over raw rows (``programs.mbias_device``,
+``programs.perread_device``).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import os
-import sys
 import threading
 
 import numpy as np
 import torch
 
-from ..engine.extract import compute_window_counters_host
+from ..engine.perread import process_reads_gapless
+from ..io import native
 from ..ops import semantics as sem
 from ..ops.arbitrate import arbitrate
 from ..ops.pileup import T, pileup2_tiles
 from ..ops.pileup4 import pileup4_tiles
 from . import host_prep as hp
+from . import programs
 
 
 class WindowHandle:
@@ -191,14 +200,11 @@ def _hard_rows_v2(seq, qual, refpos, st, hard, a_np, b_np, pair_simple,
             woff)
 
 
-class DeviceBackend:
-    """The port's compute backend for ``run_extract`` on one device.
-
-    ``device`` is explicit: "cuda" (or "cuda:N") runs the kernel, "cpu" runs
-    its plain PyTorch version (for the CPU tests). Per-run state: the
-    readback width (u8 until the first overflow, then u16 for the rest of
-    the run; shared by the drain threads, so under a lock) and the count of
-    windows routed to the host engine."""
+class _DeviceLane:
+    """What every backend holds: an explicit device ("cuda" or "cuda:N" runs
+    the kernels, "cpu" their plain PyTorch versions, for the CPU tests), on
+    the card a CUDA stream of its own, and a lock for the state its callers'
+    threads share. Nothing here moves work from one device to the other."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -211,10 +217,62 @@ class DeviceBackend:
             self.stream = None
         else:
             raise ValueError(f"unsupported device {self.device}")
-        self.host_routed = 0
-        self._sat_bits = 8
         self._lock = threading.Lock()
-        self._reasons_said: set = set()
+
+    def _stream_ctx(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _upload(self, arr):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.stream is None:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _readback(self, *tensors):
+        """Start the copy of device ``tensors`` into pinned host memory on
+        the backend's stream (call inside ``_stream_ctx``). Returns
+        wait() -> the host tensors, which blocks on one event recorded
+        after the copies and on nothing else. The caller keeps every input
+        of the launches referenced until wait() has returned."""
+        if self.stream is None:
+            return lambda: tensors
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+
+        def wait():
+            done.synchronize()
+            return hosts
+
+        return wait
+
+    def _count(self, key):
+        with self._lock:
+            self.launches[key] += 1
+
+
+class DeviceBackend(_DeviceLane):
+    """The port's compute backend for ``run_extract`` on one device.
+
+    Per-run state: the readback width (u8 until the first overflow, then
+    u16 for the rest of the run; shared by the drain threads, so under the
+    lock) and ``launches["dense"]``, the number of windows that took the
+    dense fallback. ``host_routed`` is always 0 and nothing raises it: no
+    window goes to the host engine. It stays for the callers that assert
+    just that."""
+
+    host_routed = 0
+
+    def __init__(self, device):
+        super().__init__(device)
+        self._sat_bits = 8
+        self.launches = {"dense": 0}
 
     # ------------------------------------------------------------ contract
 
@@ -225,17 +283,17 @@ class DeviceBackend:
 
     def dispatch(self, cfg, batch, strand_arr, keep, ref_window, win_offset,
                  win_start, win_end, rstrand=None):
-        """One window (``dispatch_window_counters_fast``, v3 branch)."""
+        """One window (``dispatch_window_counters_fast``, v3 branch, or the
+        dense fallback)."""
         W = win_end - win_start
         kidx = np.nonzero(keep)[0]
         if batch.n == 0 or len(kidx) == 0:
             return WindowHandle(value=np.zeros((W, 4), dtype=np.uint32))
-        reason = self._route_reason(cfg, batch.seq.shape[1], rstrand)
-        if reason is not None:
-            self._note_routed(reason)
-            return WindowHandle(value=compute_window_counters_host(
-                cfg, batch, strand_arr, keep, ref_window, win_offset,
-                win_start, win_end, rstrand))
+        if rstrand is not None or batch.seq.shape[1] > 256 \
+                or os.environ.get("MDTPU_NO_PALLAS") == "1":
+            return WindowHandle(fn=self._dispatch_dense(
+                cfg, batch, strand_arr, kidx, ref_window, win_offset,
+                win_start, W, rstrand))
         W_fixed = hp.round_up(max(int(cfg.chunkSize) + 16, W), T)
         if os.environ.get("MDTPU_FUSED", "v3") == "v2":
             seq, qual, refpos, pos, _lq, st, hard, a, b, ps = \
@@ -262,41 +320,54 @@ class DeviceBackend:
                 return hs
         return [self.dispatch(cfg, *it) for it in items]
 
-    # ------------------------------------------------------------- routing
+    # ------------------------------------------------------ dense fallback
 
-    @staticmethod
-    def _route_reason(cfg, L, rstrand):
-        """Why a window takes the host engine (the JAX package's dense
-        fallback, not ported yet), or None."""
+    def _dispatch_dense(self, cfg, batch, strand_arr, kidx, ref_window,
+                        win_offset, win_start, W, rstrand):
+        """The dense branch of the reference's ``dispatch``: the kept rows
+        of the window, trimmed and gated on the host already, go up raw;
+        on the device all mate pairs are arbitrated at once
+        (``programs.arbitrate_device``) and every base is scatter-added
+        into the four channels (``programs.pileup_device``), under the
+        per-base strand mask of a stranded BED. Exact shapes. Returns
+        fetch() -> uint32 [W, 4]."""
+        L = batch.seq.shape[1]
+        refpos_np = batch.refpos[kidx]
+        keep_base_np = None
         if rstrand is not None:
-            return "a BED strand column (--keepStrand)"
-        if L > 256:
-            return "reads longer than 256 bp"
-        if os.environ.get("MDTPU_NO_PALLAS") == "1":
-            return "MDTPU_NO_PALLAS=1"
-        return None
+            safe = np.clip(refpos_np - win_start, 0, W - 1)
+            rs = rstrand[safe]
+            odd = (strand_arr[kidx].astype(np.int64) & 1)[:, None] == 1
+            keep_base_np = (rs == 0) | ((rs == 1) & odd) | ((rs == 2) & ~odd)
+        a_np, b_np = sem.pair_mates_batch(batch, kidx)
+        ovw = hp.round_up(max(2 * L, 1), 128)
+        with self._stream_ctx():
+            seq = self._upload(batch.seq[kidx])
+            qual = self._upload(batch.qual[kidx])
+            refpos = self._upload(refpos_np.astype(np.int32))
+            st = self._upload(strand_arr[kidx].astype(np.int32))
+            keep_base = None if keep_base_np is None \
+                else self._upload(keep_base_np)
+            qual2 = programs.arbitrate_device(
+                seq, qual, refpos, st, self._upload(a_np.astype(np.int64)),
+                self._upload(b_np.astype(np.int64)), None, ovw)
+            counters = programs.pileup_device(
+                seq, qual2, refpos, st,
+                torch.ones(len(kidx), dtype=torch.bool, device=self.device),
+                keep_base, self._upload(np.asarray(ref_window, np.uint8)),
+                win_offset, win_start, W, int(cfg.minPhred))
+            wait = self._readback(counters)
+        self._count("dense")
 
-    def _note_routed(self, reason):
-        with self._lock:
-            self.host_routed += 1
-            first = reason not in self._reasons_said
-            self._reasons_said.add(reason)
-        if first:
-            sys.stderr.write("methyldackel_tpu_torch: windows routed to the "
-                             f"host engine: {reason}\n")
+        def fetch():
+            (out_h,) = wait()
+            return out_h.numpy().view(np.uint32)
+
+        # every tensor of the dispatch stays referenced until fetch is gone
+        fetch.inputs = (seq, qual, qual2, refpos, st, keep_base, counters)
+        return fetch
 
     # -------------------------------------------------------------- device
-
-    def _stream_ctx(self):
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
-
-    def _upload(self, arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.stream is None:
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _launch(self, blob_parts, meta_parts, program, *, nch, W, cand=None,
                 wide=None):
@@ -332,24 +403,13 @@ class DeviceBackend:
                 out_width = len(cand)
             out, overflow = program(blob, meta, sat_bits=sat_bits, dst=dst,
                                     out_width=out_width)
-            out_b = out.view(torch.uint8)
-            if self.stream is None:
-                out_h, ovf_h, done = out_b, overflow, None
-            else:
-                out_h = torch.empty(out_b.shape, dtype=torch.uint8,
-                                    pin_memory=True)
-                ovf_h = torch.empty(1, dtype=torch.int32, pin_memory=True)
-                out_h.copy_(out_b, non_blocking=True)
-                ovf_h.copy_(overflow, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.stream)
+            wait = self._readback(out.view(torch.uint8), overflow)
         # every input stays referenced by fetch until its readback is done
         inputs = (blob, meta, dst, out, overflow)
         np_dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32}[sat_bits]
 
         def fetch():
-            if done is not None:
-                done.synchronize()
+            out_h, ovf_h = wait()
             if int(ovf_h[0]):
                 # a count did not fit: widen the readback for the rest of
                 # the run and refetch this window dense in u32
@@ -767,3 +827,214 @@ def make_device_backend(cfg, device="cuda") -> DeviceBackend:
     """The backend ``run_extract`` drives, on ``device`` ("cuda" or
     "cpu"; no silent move from one to the other)."""
     return DeviceBackend(device)
+
+
+# ------------------------------------------------------------------ mbias
+
+def _fit_cycles(out, max_len):
+    """[4, 2, 2, n] counters cropped or zero-grown to ``max_len`` cycles."""
+    if out.shape[3] >= max_len:
+        return out[..., :max_len]
+    grown = np.zeros((4, 2, 2, max_len), np.uint32)
+    grown[..., : out.shape[3]] = out
+    return grown
+
+
+class MbiasBackend(_DeviceLane):
+    """The ``mbias`` device backend (``make_mbias_backend``): per window
+    the host packs 2-bit codes with the context, calling-base and window
+    gates resolved against two per-position masks (``native.mbias_pack``),
+    the device reduces them per (strand, read, state, cycle)
+    (``programs._mbias_reduce``) and [4, 2, 2, 4 * Lq] counts come back.
+    Rows that are not gapless take the numpy oracle on the host and are
+    added. BED windows (a per-base keep mask), reads longer than 256 bp and
+    a missing native library take ``programs.mbias_device`` over the raw
+    rows. Called from the engine's worker threads with ``-@ N``: every call
+    has its own tensors, and ``launches`` (``reduce``, ``legacy``) is
+    counted under the lock."""
+
+    def __init__(self, cfg, device):
+        super().__init__(device)
+        self.min_phred = int(cfg.minPhred)
+        self.launches = {"reduce": 0, "legacy": 0}
+
+    def __call__(self, seq, qual, refpos, strand_arr, flag, keep_base,
+                 ref_window, win_offset, win_start, win_end, keep_ctx,
+                 max_len, pos=None, lq=None):
+        n, L = seq.shape
+        if n == 0:
+            return np.zeros((4, 2, 2, max_len), dtype=np.uint32)
+        plain = keep_base is None or bool(keep_base.all())
+        simple = None
+        if pos is not None and lq is not None and plain \
+                and native.available() and L <= 256:
+            simple = native.v3_flags(seq, refpos, pos, lq)
+        packed = None
+        if simple is not None:
+            rw = np.asarray(ref_window)
+            ctype, _cdir = sem.classify_context(rw)
+            kept = np.array([keep_ctx[0], keep_ctx[1], keep_ctx[2], 0],
+                            bool)[ctype]
+            rows = np.nonzero(simple)[0]
+            Lq = (L + 3) // 4
+            packed = native.mbias_pack(
+                seq, qual, rows, pos, lq, np.asarray(strand_arr, np.int32),
+                np.asarray(flag, np.uint16),
+                (kept & (rw == programs.REF_C)).astype(np.uint8),
+                (kept & (rw == programs.REF_G)).astype(np.uint8),
+                win_offset, win_start, win_end, Lq, len(rows),
+                self.min_phred)
+        if packed is None:
+            return self._legacy(seq, qual, refpos, strand_arr, flag,
+                                keep_base, ref_window, win_offset, win_start,
+                                win_end, keep_ctx, max_len)
+        codes, combo = packed
+        with self._stream_ctx():
+            out_d = programs._mbias_reduce(self._upload(codes),
+                                           self._upload(combo))
+            out = out_d.cpu().numpy().view(np.uint32)
+        self._count("reduce")
+        hard = np.nonzero(~simple)[0]
+        if len(hard):
+            hc = sem.mbias_counters(
+                np.ascontiguousarray(seq[hard]),
+                np.ascontiguousarray(qual[hard]), refpos[hard],
+                strand_arr[hard], flag[hard], np.ones((len(hard), L), bool),
+                ref_window, win_offset, win_start, win_end, keep_ctx,
+                self.min_phred, L)
+            out[..., : hc.shape[3]] += hc.astype(np.uint32)
+        return _fit_cycles(out, max_len)
+
+    def _legacy(self, seq, qual, refpos, strand_arr, flag, keep_base,
+                ref_window, win_offset, win_start, win_end, keep_ctx,
+                max_len):
+        """``_mbias_legacy``: the raw rows go up at their exact shapes and
+        ``programs.mbias_device`` counts them."""
+        if keep_base is None:
+            keep_base = np.ones(seq.shape, bool)
+        with self._stream_ctx():
+            out_d = programs.mbias_device(
+                self._upload(seq), self._upload(qual),
+                self._upload(refpos.astype(np.int32)),
+                self._upload(np.asarray(strand_arr).astype(np.int32)),
+                self._upload(np.asarray(flag).astype(np.int32)),
+                self._upload(keep_base),
+                self._upload(np.asarray(ref_window, np.uint8)),
+                win_offset, win_start, win_end,
+                keep_ctx=tuple(bool(k) for k in keep_ctx),
+                min_phred=self.min_phred)
+            out = out_d.cpu().numpy().view(np.uint32)
+        self._count("legacy")
+        return _fit_cycles(out, max_len)
+
+
+def make_mbias_backend(cfg, device="cuda") -> MbiasBackend:
+    """The backend ``engine.mbias.compute_mbias`` calls per window, on
+    ``device`` ("cuda" or "cpu"; no silent move from one to the other)."""
+    return MbiasBackend(cfg, device)
+
+
+# ---------------------------------------------------------------- perRead
+
+class PerreadBackend(_DeviceLane):
+    """The ``perRead`` device backend (``make_perread_backend``): the host
+    packs 2-bit tally codes (``native.perread_pack``: CpG direction, window,
+    strand and base resolved on the host), the device counts them per read
+    (``programs._perread_reduce``) and two [n] vectors come back. Rows
+    holding a sub-phred base (``haslow``) are redone by the exact host
+    walker, so the low-qual skip quirk never reaches the packed path. Reads
+    longer than 1020 bp (the pack's row buffer) and a missing native
+    library take ``programs.perread_device`` over the raw rows.
+
+    ``dispatch(...)`` returns a ``finish()`` closure, so that the engine
+    keeps several windows in flight: upload, reduction and the copy back
+    into pinned memory run on the backend's stream, and ``finish()`` waits
+    for the one event recorded after that copy. ``launches`` (``reduce``,
+    ``legacy``) and ``rows_redone`` (the ``haslow`` rows the host walker
+    redid) are counted under the lock."""
+
+    def __init__(self, cfg, device):
+        super().__init__(device)
+        self.cfg = cfg
+        self.min_phred = int(cfg.minPhred)
+        self.launches = {"reduce": 0, "legacy": 0}
+        self.rows_redone = 0
+
+    def __call__(self, *args):
+        return self.dispatch(*args)()
+
+    def dispatch(self, seq, qual, pos, lq, strand_arr, ref_window, seq_start,
+                 seq_len):
+        n, L = seq.shape
+        if n == 0:
+            z = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+            return lambda: z
+        rw = np.asarray(ref_window)
+        packed = None
+        # L cap = the pack's row buffer (it rejects wider rows)
+        if native.available() and L <= 1020:
+            is_c = rw == programs.REF_C
+            is_g = rw == programs.REF_G
+            dirv = np.zeros(len(rw), np.int8)
+            dirv[:-1][is_c[:-1] & is_g[1:]] = 1
+            dirv[1:][is_g[1:] & is_c[:-1]] = -1
+            packed = native.perread_pack(
+                np.ascontiguousarray(seq), np.ascontiguousarray(qual),
+                np.arange(n, dtype=np.int64), pos, lq,
+                np.asarray(strand_arr, np.int32), dirv, seq_start,
+                min(seq_len, len(rw)), (L + 3) // 4, n, self.min_phred)
+        if packed is None:
+            res = self._legacy(seq, qual, pos, lq, strand_arr, rw, seq_start,
+                               seq_len)
+            return lambda: res
+        codes, haslow = packed
+        with self._stream_ctx():
+            codes_d = self._upload(codes)
+            nm_d, nu_d = programs._perread_reduce(codes_d)
+            wait = self._readback(nm_d, nu_d)
+        self._count("reduce")
+
+        def finish():
+            nm_h, nu_h = wait()
+            nm = nm_h.numpy().astype(np.int64)
+            nu = nu_h.numpy().astype(np.int64)
+            dirty = np.nonzero(haslow)[0]
+            if len(dirty):
+                with self._lock:
+                    self.rows_redone += len(dirty)
+                nm[dirty], nu[dirty] = process_reads_gapless(
+                    self.cfg, np.ascontiguousarray(seq[dirty]),
+                    np.ascontiguousarray(qual[dirty]), pos[dirty],
+                    lq[dirty], strand_arr[dirty], ref_window, seq_start,
+                    seq_len)
+            return nm, nu
+
+        # every tensor of the dispatch stays referenced until finish is gone
+        finish.inputs = (codes_d, nm_d, nu_d)
+        return finish
+
+    def _legacy(self, seq, qual, pos, lq, strand_arr, rw, seq_start,
+                seq_len):
+        """``_perread_legacy``: the raw rows go up at their exact shapes
+        and ``programs.perread_device`` walks them in lockstep."""
+        if seq_len <= 0 or len(rw) == 0:  # no reference: nothing to tally
+            return np.zeros(len(seq), np.int64), np.zeros(len(seq), np.int64)
+        with self._stream_ctx():
+            nm_d, nu_d = programs.perread_device(
+                self._upload(seq), self._upload(qual),
+                self._upload(np.asarray(pos, np.int64).astype(np.int32)),
+                self._upload(np.asarray(lq, np.int32)),
+                self._upload(np.asarray(strand_arr).astype(np.int32)),
+                self._upload(rw[:seq_len].astype(np.uint8)),
+                int(seq_start), int(seq_len), min_phred=self.min_phred)
+            nm = nm_d.cpu().numpy().astype(np.int64)
+            nu = nu_d.cpu().numpy().astype(np.int64)
+        self._count("legacy")
+        return nm, nu
+
+
+def make_perread_backend(cfg, device="cuda") -> PerreadBackend:
+    """The backend ``engine.perread.run_perread`` dispatches to per window,
+    on ``device`` ("cuda" or "cpu"; no silent move from one to the
+    other)."""
+    return PerreadBackend(cfg, device)

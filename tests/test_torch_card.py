@@ -279,3 +279,62 @@ def test_cli_on_card_matches_host_engine(tmp_path, env, extra):
         assert "routed to the host engine" not in res.stderr
         outs[engine] = (d / "o_CpG.bedGraph").read_bytes()
     assert outs["cuda"] == outs["host"] and outs["host"].count(b"\n") > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd,args,env", [
+    ("extract", ["--chunkSize", "7000", "@FA", "@BAM", "-o", "o"],
+     {"MDTPU_NO_PALLAS": "1"}),
+    ("mbias", ["--txt", "--chunkSize", "7000", "@FA", "@BAM", "p"], {}),
+    ("mbias", ["--txt", "-@", "3", "--chunkSize", "7000", "-l", "@BED",
+               "--keepStrand", "@FA", "@BAM", "p"], {}),
+    ("perRead", ["--chunkSize", "7000", "@FA", "@BAM"], {}),
+    ("perRead", ["--chunkSize", "7000", "-p", "30", "@FA", "@BAM"],
+     {"MDTPU_PIPELINE": "1"})])
+def test_subcommands_on_card_match_host_engine(tmp_path, cmd, args,
+                                               env):
+    """The dense dispatch of extract, mbias (packed and raw-rows programs)
+    and perRead (with rows redone for sub-phred bases) through `python -m
+    methyldackel_tpu_torch.cli` with MDTPU_ENGINE=cuda: stdout and every
+    file equal the host engine's."""
+    _need_card()
+    from methyldackel_tpu_torch.utils.simulate import write_synthetic_input
+
+    fa, bam = write_synthetic_input(str(tmp_path), 4000, 120, 40000, seed=9)
+    bed = tmp_path / "r.bed"
+    bed.write_text("chrSim\t2000\t15000\ta\t0\t+\n"
+                   "chrSim\t21000\t36000\tb\t0\t-\n")
+    subst = {"@FA": fa, "@BAM": bam, "@BED": str(bed)}
+    argv = [subst.get(a, a) for a in args]
+    base = dict(os.environ, MDTPU_STEAL="0",
+                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    outs = {}
+    for engine in ("cuda", "host"):
+        d = tmp_path / engine
+        d.mkdir()
+        res = subprocess.run(
+            [sys.executable, "-m", "methyldackel_tpu_torch.cli", cmd, *argv],
+            cwd=d, env=dict(base, MDTPU_ENGINE=engine, **env),
+            capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr
+        outs[engine] = (res.stdout, {p.name: p.read_bytes()
+                                     for p in sorted(d.iterdir())})
+    assert outs["cuda"] == outs["host"]
+    assert len(outs["host"][0]) + sum(map(len, outs["host"][1].values())) > 2000
+
+
+@pytest.mark.cuda
+def test_programs_on_card_equal_the_cpu_device():
+    """Each torch program of parallel/programs.py gives the same integers on
+    the card as on the CPU device."""
+    _need_card()
+    from chip_smoke import program_cases
+
+    for name, fn, args, _ops in program_cases(np.random.default_rng(1), 3000,
+                                             100):
+        cpu = fn(*args)
+        gpu = fn(*[a.cuda() if isinstance(a, torch.Tensor) else a
+                   for a in args])
+        cpu, gpu = [(x if isinstance(x, tuple) else (x,)) for x in (cpu, gpu)]
+        for c, g in zip(cpu, gpu):
+            assert torch.equal(c, g.cpu()), name

@@ -141,7 +141,7 @@ def test_min_opposite_depth_is_routed_and_counted(tmp_path, monkeypatch,
     backend = _run_both(monkeypatch, tmp_path,
                         ["--chunkSize", "3000", "--minOppositeDepth", "1",
                          fa, bam, "-o", "o"])
-    assert backend.host_routed == 0
+    assert backend.host_routed == 0 and backend.launches["dense"] == 0
     assert "routed to the host engine" not in capsys.readouterr().err
 
 
@@ -209,8 +209,10 @@ def test_select_backend_modes(monkeypatch):
 
 def test_merge_context_and_unported_commands(tmp_path, monkeypatch, capsys):
     """mergeContext runs the port's copy of the host code, byte-identical
-    to the JAX package's; mbias and perRead say they are not ported and
-    fail."""
+    to the JAX package's. No command is left unported: mbias and perRead run
+    through the port's main, equal to the JAX package's on the host engine,
+    and the usage text carries the reference's lines under the port's
+    name."""
     _scenario_indel(tmp_path)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("MDTPU_ENGINE", "host")
@@ -222,6 +224,23 @@ def test_merge_context_and_unported_commands(tmp_path, monkeypatch, capsys):
     merged = (tmp_path / "m.bedGraph").read_bytes()
     assert merged == (tmp_path / "r.bedGraph").read_bytes()
     assert merged.count(b"\n") > 1
-    for cmd in ("mbias", "perRead"):
-        assert port_cli.main([cmd, "g.fa", "r.bam"]) != 0
-    assert "not ported" in capsys.readouterr().err
+    capsys.readouterr()
+    outs = {}
+    for name, cli in (("port", port_cli), ("ref", ref_cli)):
+        assert cli.main(["mbias", "--txt", "g.fa", "r.bam", name]) == 0
+        assert cli.main(["perRead", "g.fa", "r.bam"]) == 0
+        outs[name] = capsys.readouterr().out
+    assert outs["port"] == outs["ref"] and outs["port"].count("\n") > 4
+    assert "not ported" not in capsys.readouterr().err
+    assert (tmp_path / "port_OT.svg").read_bytes() == \
+        (tmp_path / "ref_OT.svg").read_bytes()
+    assert port_cli.main([]) == 0
+    port_usage = capsys.readouterr().err
+    assert ref_cli.main([]) == 0
+    ref_usage = capsys.readouterr().err
+    for line in ref_usage.splitlines()[2:]:  # from "Usage:" on, by command
+        if line.startswith("Usage:"):
+            line = line.replace("methyldackel-tpu", "methyldackel-tpu-torch")
+        assert line in port_usage.splitlines(), line
+    assert "Version: " in port_usage and "methyldackel_tpu_torch" in port_usage
+    assert port_cli.main(["nonsense"]) == -1

@@ -58,11 +58,13 @@ def test_port_file_list_is_whole():
     names = set(PORT_FILES)
     for rel in ("__init__.py", "cli.py", "config.py", "io/native.py",
                 "io/bam.py", "io/cram.py", "engine/extract.py",
-                "engine/merge_context.py", "ops/semantics.py",
-                "ops/pileup4.py", "parallel/device.py", "utils/profiling.py",
+                "engine/merge_context.py", "engine/mbias.py",
+                "engine/perread.py", "engine/svg.py", "ops/semantics.py",
+                "ops/pileup4.py", "parallel/device.py",
+                "parallel/programs.py", "utils/profiling.py",
                 "utils/simulate.py"):
         assert os.path.join("methyldackel_tpu_torch", rel) in names, rel
-    assert len(PORT_FILES) >= 38
+    assert len(PORT_FILES) >= 42
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -138,6 +140,39 @@ def test_extract_leaves_jax_and_the_jax_package_out(tmp_path, engine, device,
     assert res.returncode == 0, res.stderr
     assert f"standalone-ok {backend}" in res.stdout
     assert (tmp_path / "o_CpG.bedGraph").read_text().count("\n") > 3
+
+
+_SUB_CHILD = (
+    "import sys\n"
+    "from methyldackel_tpu_torch.engine.{module} import {fn}\n"
+    "rc, be = {fn}({argv}, device={device})\n"
+    "assert rc == 0, rc\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'methyldackel_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('standalone-ok', type(be).__name__, file=sys.stderr)\n")
+
+
+@pytest.mark.parametrize("module,fn,argv,out", [
+    ("mbias", "mbias", ["--txt", "g.fa", "r.bam", "p"], "p_OT.svg"),
+    ("perread", "perread", ["-o", "reads.txt", "g.fa", "r.bam"],
+     "reads.txt")])
+@pytest.mark.parametrize("engine,device,backend", [
+    ("cuda", "'cpu'", "Backend"), ("host", "None", "NoneType")])
+def test_subcommands_leave_jax_and_the_jax_package_out(
+        tmp_path, module, fn, argv, out, engine, device, backend):
+    """mbias and perRead of the port in a fresh process, on the CPU device
+    and with MDTPU_ENGINE=host: neither jax nor methyldackel_tpu gets
+    imported."""
+    _small_input(tmp_path)
+    env = dict(os.environ, MDTPU_ENGINE=engine, PYTHONPATH=REPO)
+    env.pop("MDTPU_TRACE_DIR", None)
+    code = _SUB_CHILD.format(module=module, fn=fn, argv=argv, device=device)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "standalone-ok" in res.stderr and backend in res.stderr
+    assert (tmp_path / out).stat().st_size > 50
 
 
 def test_trace_dir_writes_a_torch_profiler_trace(tmp_path):
