@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR] [--busy] [--kernels-only] [--ptxas]
-                          [--variants]
+                          [--variants] [--mesh-only] [--hosts-only]
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -56,22 +56,25 @@ printing a result:
    (240,000 reads of 150 bp over 1 Mb; CUDA-event median of 5 after a
    warm-up) beside the bound of its bytes (every input read once, the
    output written once).
-3. The main paths end to end on a synthetic 2M-read WGBS input, through
+3. The main paths end to end on a synthetic 2M-read WGBS input (written
+   by a process of its own while phase 2 holds the card), through
    ``extract`` of the port (MDTPU_ENGINE=cuda, MDTPU_STEAL=0, so every
    window goes to the card): the default extract, ``--minOppositeDepth 5
    --maxVariantFrac 0.1`` (variant exclusion, the 4-channel program) and
    ``MDTPU_FUSED=v2`` (arbitration on the card). Each CpG bedGraph must be
-   byte-identical to the port's exact host engine (MDTPU_ENGINE=host, in
-   its own process), each path's kernels must have launched, no window
-   may have been routed to the host, and the variant run must exclude
-   positions. Port and host engine run in turns in this process for reads/s.
+   byte-identical to the port's exact host engine (MDTPU_ENGINE=host in
+   this process; for the default path also in a process of its own), each
+   path's kernels must have launched, no window may have been routed to the
+   host, and the variant run must exclude positions. Port and host engine
+   run in turns in this process for reads/s (the default path two a side,
+   the two others cuda, host, cuda).
    With ``--busy`` each path runs once more under torch.profiler with the
    engine's stage timers on, for the device's busy share of the wall time.
    Then ``mbias`` (``--txt`` and the SVG files) and ``perRead`` (``-o``) on
-   the same input, once on the card and once with the host engine in this
-   process for reads/s; stdout and every file must be byte-identical to the
-   port's MDTPU_ENGINE=host in its own process, and the backend's reduction
-   must have launched. With ``--busy`` also the default extract under
+   the same input, once on the card and once with the host engine
+   (MDTPU_ENGINE=host) in this process, for reads/s and for the bytes:
+   stdout and every file must be equal, and the backend's reduction must
+   have launched. With ``--busy`` also the default extract under
    MDTPU_NO_PALLAS=1 (the dense dispatch at real windows).
 4. Side routes on a small input with indel and '=' reads: single-window
    dispatch, the window-space group, CHG+CHH, the 4-channel program, v2,
@@ -85,6 +88,31 @@ printing a result:
    (rows redone by the host walker); each byte-identical to the host engine
    with its device program launched.
 
+5. The mesh engine (``parallel/mesh.py``; torch programs, no kernel of its
+   own). The three gates of the JAX package's multi-chip dry run with 8
+   shards as 8 streams of the one card, each three times, against the port's
+   own host functions (``mesh_gates``). The sharded step at one real window
+   (240,000 reads of 150 bp over 1 Mb) for (dp, sp) = (1, 1), (8, 1), (4, 2)
+   and (2, 4) beside ``programs.window_pipeline`` alone, CUDA-event medians,
+   every grid's counters equal to window_pipeline's. Then ``run_extract``
+   with ``make_mesh_backend(cfg, n_devices=8, device="cuda")`` on the
+   2M-read input and the CLI under MDTPU_ENGINE=mesh (on one card the
+   one-device engine, so ``pileup2`` must launch), both byte-identical to
+   the host engine, in turns with the default engine for reads/s.
+6. Multi-host on the one card, every host a process of the port's CLI with
+   MDTPU_ENGINE unset (the card): ``extract`` as one host, as two hosts at
+   once under MDTPU_NUM_HOSTS=2 followed by ``merge-shards``, and as a live
+   two-rank ``torch.distributed`` job (gloo over loopback; rank 0 merges),
+   each byte-identical to the host engine, with whole-process wall times;
+   ``extract --CHG --CHH``, ``perRead -o`` and ``mbias`` (two hosts, then
+   MDTPU_MBIAS_FINALIZE=1) under two simulated hosts, each byte-identical
+   to the one-host run on the card. Every process started here is waited
+   for, or killed when another fails.
+
+With ``--mesh-only`` (phase 5) or ``--hosts-only`` (phase 6), or both, the
+other phases are left out but for the runs these compare with; the script
+then exits 3 and prints no result line. Phase 5 also runs on a machine with
+several cards: the grid is then filled from all of them.
 The last line is ``{"ok": true, "device": {...}}``; before it come the card
 line and a JSON line with each kernel's launches, error, times and bound.
 Nothing here imports jax or the JAX package. Work files go to
@@ -127,10 +155,13 @@ def nbytes_of(*arrays):
 
 
 def card_line() -> str:
+    """Name and power limit as nvidia-smi gives them; several cards on one
+    line."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+        capture_output=True, text=True,
+        check=True).stdout.strip().replace("\n", "; ")
 
 
 def cuda_ms(fn, reps=REPS):
@@ -1343,6 +1374,493 @@ def build_all(build, sources):
     return dict(zip(sources, secs))
 
 
+# ------------------------------------- phases 5-6: the mesh and multi-host
+
+def start_input_writer():
+    """A process that writes the 2M-read input and its index into WORK
+    while phase 2 holds the card. At exit it is killed if it still runs,
+    and WORK is removed."""
+    import atexit
+
+    code = ("import sys\n"
+            "from methyldackel_tpu_torch.io.bai import build_bai\n"
+            "from methyldackel_tpu_torch.io.bam import BamFile\n"
+            "from methyldackel_tpu_torch.utils.simulate import "
+            "write_synthetic_input\n"
+            "fa, bam = write_synthetic_input(sys.argv[1], 1_000_000, 150, "
+            "1 << 23, seed=0)\n"
+            "build_bai(BamFile(bam), bam + '.bai')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, WORK], cwd=ROOT,
+                            stdout=subprocess.DEVNULL)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(WORK, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc
+
+
+def mesh_gates(device, n=8, rounds=3):
+    """The three gates of the JAX package's multi-chip dry run, with ``n``
+    shards on ``device`` ("cuda": ``n`` streams of the cards present; "cpu"
+    for the CPU tests), each against the port's own host functions and each
+    ``rounds`` times over (a missing dependency between two streams gives
+    wrong counts sometimes, not always):
+
+    1. ``run_sharded_window`` on 4*n pairs of 32 bp against
+       ``semantics.pileup_channels`` after ``arbitrate_overlaps``. The
+       conversion-efficiency gate stays off (min_conv_eff 0), as in the JAX
+       gate: it is float32 and may differ from numpy by one ulp at the
+       threshold;
+    2. ``make_mesh_backend`` on shuffled rows (the pairing comes from the
+       qnames) with a single, a dropped read and a BED strand column against
+       ``compute_window_counters_host``;
+    3. 10,000 pairs of 150 bp over a 128k window with minOppositeDepth 3,
+       absolute trimming, 50 dropped reads and a BED strand column, for sp
+       in 1, 2, 4: all equal to the host and to each other.
+
+    Returns the counter sums of the three gates."""
+    import copy
+
+    from methyldackel_tpu_torch.config import Config
+    from methyldackel_tpu_torch.engine.extract import \
+        compute_window_counters_host
+    from methyldackel_tpu_torch.ops import semantics as sem
+    from methyldackel_tpu_torch.parallel import mesh as pm
+    from methyldackel_tpu_torch.utils.simulate import (
+        random_reference, simulate_batch, simulate_batch_fast)
+
+    def same(name, want, got):
+        if got.dtype != np.uint32 or got.shape != want.shape \
+                or not np.array_equal(want, got):
+            bad = np.nonzero((want != got).any(axis=1))[0] \
+                if got.shape == want.shape else got.shape
+            raise AssertionError(f"mesh gate {name}: counters diverge from "
+                                 f"the host at {bad[:10]}")
+
+    saved = os.environ.get("MDTPU_MESH_FORCE")
+    os.environ["MDTPU_MESH_FORCE"] = "1"  # n = 1 keeps the sharded step
+    try:
+        rng = np.random.default_rng(1)
+        ref, codes = random_reference(rng, 512)
+        batch = simulate_batch(rng, codes, n_pairs=4 * n, read_len=32)
+        st = sem.strand(batch.flag, batch.xg)
+        seq, qual = batch.seq.copy(), batch.qual.copy()
+        a, b = sem.pair_mates(batch.qname, batch.flag)
+        sem.arbitrate_overlaps(seq, qual, batch.refpos, st, a, b)
+        host1 = sem.pileup_channels(seq, qual, batch.refpos, st,
+                                    np.ones(seq.shape, bool), ref, 0, 0, 512,
+                                    5)
+        mesh = pm.make_mesh(n, device=device)
+        for _ in range(rounds):
+            same("1 (run_sharded_window)", host1, pm.run_sharded_window(
+                mesh, batch, ref, 0, 0, 512, min_phred=5, min_conv_eff=0.0,
+                use_overlaps=True))
+
+        rng = np.random.default_rng(5)
+        ref2, codes2 = random_reference(rng, 1024)
+        batch2 = simulate_batch(rng, codes2, n_pairs=3 * n, read_len=40)
+        order = rng.permutation(batch2.n)
+        for f in ("flag", "tid", "pos", "mapq", "l_qseq", "endpos", "mtid",
+                  "mpos", "xg", "nh", "seq", "qual", "refpos"):
+            setattr(batch2, f, getattr(batch2, f)[order])
+        batch2.qname = [batch2.qname[i] for i in order]
+        batch2.flag = batch2.flag.copy()
+        batch2.flag[1] |= 0x8  # mate unmapped: an unpaired row
+        st2 = sem.strand(batch2.flag, batch2.xg)
+        keep2 = np.ones(batch2.n, dtype=bool)
+        keep2[2] = False
+        cfg = Config()
+        cfg.chunkSize = 512
+        rstrand = rng.integers(0, 3, 512).astype(np.int8)
+        host2 = compute_window_counters_host(
+            cfg, copy.deepcopy(batch2), st2, keep2, ref2, 0, 0, 512, rstrand)
+        engine = pm.make_mesh_backend(cfg, n, device=device)
+        for _ in range(rounds):
+            same("2 (make_mesh_backend)", host2, engine(
+                cfg, copy.deepcopy(batch2), st2, keep2, ref2, 0, 0, 512,
+                rstrand))
+
+        rng = np.random.default_rng(11)
+        W3 = 131072
+        ref3, codes3 = random_reference(rng, W3 + 64)
+        batch3 = simulate_batch_fast(rng, codes3, 10_000, 150)
+        cfg3 = Config()
+        cfg3.chunkSize = W3
+        cfg3.minOppositeDepth = 3
+        cfg3.maxVariantFrac = 0.25
+        for s4 in range(4):
+            cfg3.absoluteBounds[4 * s4 : 4 * s4 + 4] = [5, 140, 3, 145]
+        st3 = sem.strand(batch3.flag, batch3.xg)
+        sem.trim_absolute(batch3.seq, batch3.qual, batch3.l_qseq, st3,
+                          batch3.flag, cfg3.absoluteBounds)
+        keep3 = np.ones(batch3.n, dtype=bool)
+        keep3[rng.integers(0, batch3.n, 50)] = False
+        rstrand3 = rng.integers(0, 3, W3).astype(np.int8)
+        host3 = compute_window_counters_host(
+            cfg3, copy.deepcopy(batch3), st3, keep3, ref3, 0, 0, W3, rstrand3)
+        if not (host3.sum(0) > 0).all():
+            raise AssertionError("mesh gate 3: a channel is empty")
+        for sp in (1, 2, 4):
+            if n % sp:
+                continue
+            engine = pm.make_mesh_backend(cfg3, n, sp=sp, device=device)
+            for _ in range(rounds):
+                same(f"3 (sp {sp})", host3, engine(
+                    cfg3, copy.deepcopy(batch3), st3, keep3, ref3, 0, 0, W3,
+                    rstrand3))
+    finally:
+        if saved is None:
+            os.environ.pop("MDTPU_MESH_FORCE", None)
+        else:
+            os.environ["MDTPU_MESH_FORCE"] = saved
+    return [int(h.sum()) for h in (host1, host2, host3)]
+
+
+def mesh_step_timed(rng, grids=((1, 1), (8, 1), (4, 2), (2, 4)), n=240_000,
+                    L=150, reps=5):
+    """The sharded step at one real window (the rows of ``program_cases``,
+    resident on the card) for each (dp, sp) grid, beside
+    ``programs.window_pipeline`` alone on the same rows. CUDA events on the
+    caller's stream, which every lane's stream waits for at the start and
+    which waits for every lane at the end; the step's time includes its
+    readback into pinned memory, window_pipeline's does not. Every grid's
+    counters must equal window_pipeline's. Returns {(dp, sp) or
+    "window_pipeline": ms}."""
+    import torch
+
+    from methyldackel_tpu_torch.parallel import mesh as pm
+    from methyldackel_tpu_torch.parallel import programs as prog
+
+    case = [c for c in program_cases(rng, n, L)
+            if c[0] == "window_pipeline"][0]
+    (seq, qual, refpos, flag, xg, lq, mapq, keep_read, _kb, pa, pb, _pv, ref,
+     bounds, abounds, woff, wstart) = [
+        a.cuda() if isinstance(a, torch.Tensor) else a for a in case[2]]
+    kw = case[1].keywords
+    W = kw["wpad"]
+
+    def whole():
+        return prog.window_pipeline(
+            seq, qual, refpos, flag, xg, lq, mapq, keep_read, None, pa, pb,
+            None, ref, bounds, abounds, woff, wstart, **kw)
+
+    want = whole().cpu().numpy().view(np.uint32)
+    torch.cuda.synchronize()
+    out = {"window_pipeline": float(np.median(cuda_ms(whole, reps)))}
+    card = card_line()
+    print(f"  window_pipeline alone: {out['window_pipeline']:.3f} ms at {n} "
+          f"reads of {L} bp over {W} columns (CUDA events, median of {reps}; "
+          f"{card})", flush=True)
+    cur = torch.cuda.current_stream()
+    for dp, sp in grids:
+        mesh = pm.make_mesh(dp * sp, sp=sp, device="cuda")
+        step = pm.sharded_window_pipeline(
+            mesh, wpad=W, ovw=kw["ovw"], min_phred=kw["min_phred"],
+            min_conv_eff=kw["min_conv_eff"], use_overlaps=True)
+        fetches = []
+        enqueue = []
+
+        def once():
+            t0 = time.perf_counter()
+            fetches.append(step.dispatch(
+                seq, qual, refpos, flag, xg, lq, keep_read, ref, bounds,
+                abounds, woff, wstart))
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            for row in mesh.lanes:
+                for lane in row:
+                    cur.wait_stream(lane.stream)
+
+        once()
+        got = fetches.pop()()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"sharded step ({dp}, {sp}) != "
+                                 "window_pipeline")
+        ms = float(np.median(cuda_ms(once, reps)))
+        for f in fetches:
+            if not np.array_equal(f(), want):
+                raise AssertionError(f"sharded step ({dp}, {sp}): a timed "
+                                     "call != window_pipeline")
+        out[(dp, sp)] = ms
+        print(f"  sharded step (dp, sp) = ({dp}, {sp}): {ms:.3f} ms, "
+              f"{ms / out['window_pipeline']:.2f}x window_pipeline alone; "
+              f"the host took {float(np.median(enqueue[1:])):.3f} ms to "
+              f"enqueue it; counters equal, sum {int(want.sum())} (CUDA "
+              f"events, median of {reps}, readback included; {card})",
+              flush=True)
+        del mesh, step, fetches
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_extract_with(make_backend, fa, bam, cwd, env):
+    """``engine.extract.run_extract`` on (fa, bam) with the backend
+    ``make_backend(cfg)`` builds, writing ``out_CpG.bedGraph`` in ``cwd`` as
+    the CLI would with ``-o out``. Returns (seconds, backend)."""
+    from methyldackel_tpu_torch.config import Config
+    from methyldackel_tpu_torch.engine import formats
+    from methyldackel_tpu_torch.engine.extract import run_extract
+
+    cfg = Config()
+    cfg.FastaName, cfg.BAMName = fa, bam
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        backend = make_backend(cfg)
+        path = os.path.join(cwd, formats.output_name(cfg, "out", "CpG"))
+        t0 = time.perf_counter()
+        with open(path, "w") as fh:
+            fh.write(formats.header_line(cfg, "CpG", "out"))
+            run_extract(cfg, [fh, None, None], compute_backend=backend)
+        dt = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dt, backend
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_processes(cmd, args, cwd, envs, stdout_of=None):
+    """One process of the port's CLI for each environment in ``envs``, all
+    started together in ``cwd`` (MDTPU_ENGINE unset: the card). Waits for
+    all, stops whatever is left when one fails, and returns the seconds from
+    the first start to the last exit. ``stdout_of`` names the process whose
+    stdout goes to ``stdout.txt``."""
+    base = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+    for k in ("MDTPU_ENGINE", "MDTPU_NUM_HOSTS", "MDTPU_HOST_ID",
+              "MDTPU_MBIAS_FINALIZE", "MASTER_ADDR", "MASTER_PORT", "RANK",
+              "WORLD_SIZE"):
+        base.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "methyldackel_tpu_torch.cli", cmd, *args],
+        cwd=cwd, env=dict(base, **env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for env in envs]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.perf_counter() - t0
+    for k, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{cmd} process {k} of {len(envs)} failed: "
+                               f"{err[-2000:]}")
+        if k == stdout_of:
+            with open(os.path.join(cwd, "stdout.txt"), "w") as fh:
+                fh.write(out)
+        elif stdout_of is not None and out:
+            raise AssertionError(f"{cmd} process {k} printed a result")
+    return dt
+
+
+def merge_shards_cli(cwd, paths):
+    """``python -m methyldackel_tpu_torch.parallel.distributed merge-shards``
+    after every host has exited; no shard may be left. Returns seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "methyldackel_tpu_torch.parallel.distributed",
+         "merge-shards", *paths], cwd=cwd, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    if res.returncode != 0 or res.stdout.count("merged ") != len(paths):
+        raise RuntimeError(f"merge-shards failed: {res.stdout} {res.stderr}")
+    left = [nm for nm in os.listdir(cwd) if ".w" in nm or nm.endswith(".npy")]
+    if left:
+        raise AssertionError(f"shards left after the merge: {left[:5]}")
+    return time.perf_counter() - t0
+
+
+def sim_hosts(n):
+    return [{"MDTPU_NUM_HOSTS": str(n), "MDTPU_HOST_ID": str(h)}
+            for h in range(n)]
+
+
+def live_ranks(n):
+    port = str(_free_port())
+    return [{"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+             "RANK": str(r), "WORLD_SIZE": str(n)} for r in range(n)]
+
+
+def mesh_phase(fa, bam, host_dir, reset_counts, read_counts):
+    """Phase 5 on the 2M-read input. ``host_dir`` holds the host engine's
+    ``out_CpG.bedGraph`` (``-o out``). Returns the kernel launch counts of
+    the CLI run under MDTPU_ENGINE=mesh."""
+    import torch
+
+    from methyldackel_tpu_torch.parallel import mesh as pm
+
+    card = card_line()
+    t0 = time.perf_counter()
+    sums = mesh_gates("cuda", n=8, rounds=3)
+    print(f"[5] mesh gates on the card, 8 shards as 8 streams of "
+          f"{torch.cuda.device_count()} card(s), 3 rounds each: "
+          f"run_sharded_window == semantics.pileup_channels (sum {sums[0]}, "
+          f"conversion-efficiency gate off, as in the JAX gate); "
+          f"make_mesh_backend on shuffled rows with a single, a dropped "
+          f"read and a BED strand column == compute_window_counters_host "
+          f"(sum {sums[1]}); 10,000 pairs over 128k, minOppositeDepth 3, "
+          f"absolute trimming, sp 1, 2, 4 all == the host (sum {sums[2]}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("[5] the sharded step at one real window", flush=True)
+    mesh_step_timed(np.random.default_rng(0))
+
+    d_one = os.path.join(WORK, "mesh_one")
+    d_mesh = os.path.join(WORK, "mesh_8")
+    d_cli = os.path.join(WORK, "mesh_cli")
+    for d in (d_one, d_mesh, d_cli):
+        os.makedirs(d)
+    args = [fa, bam, "-o", "out"]
+    steal0 = {"MDTPU_STEAL": "0"}
+    # one call, in turns: default engine, 8-cell mesh, CLI mesh, default
+    t_one = [run_port(args, d_one, {"MDTPU_ENGINE": "cuda", **steal0})[0]]
+    t_mesh, be = run_extract_with(
+        lambda cfg: pm.make_mesh_backend(cfg, n_devices=8, device="cuda"),
+        fa, bam, d_mesh, steal0)
+    if type(be) is not pm.MeshBackend or be.launches["sharded"] < 8 \
+            or be.host_routed != 0:
+        raise AssertionError("the 8-cell mesh run missed the sharded step")
+    same_outputs(d_mesh, host_dir, ["out_CpG.bedGraph"])
+    reset_counts()
+    t_cli, be_cli = run_port(args, d_cli, {"MDTPU_ENGINE": "mesh", **steal0})
+    counts = read_counts()
+    t_one.append(run_port(args, d_one, {"MDTPU_ENGINE": "cuda", **steal0})[0])
+    same_outputs(d_cli, host_dir, ["out_CpG.bedGraph"])
+    same_outputs(d_one, host_dir, ["out_CpG.bedGraph"])
+    print(f"[5] mesh extract, 2,000,000 reads of 150 bp: make_mesh_backend("
+          f"cfg, n_devices=8) grid {be.mesh.shape} {2e6 / t_mesh:,.0f} "
+          f"reads/s ({t_mesh:.2f} s; windows through the sharded step "
+          f"{be.launches['sharded']}); the CLI under MDTPU_ENGINE=mesh "
+          f"({type(be_cli).__name__}, launches {be_cli.launches}; with one "
+          f"card it is the one-device engine) {2e6 / t_cli:,.0f} reads/s "
+          f"({t_cli:.2f} s; kernel launches {counts}); the default engine "
+          f"in the same turns "
+          f"{2e6 / t_one[0]:,.0f} and {2e6 / t_one[1]:,.0f} reads/s "
+          f"({t_one[0]:.2f} s, {t_one[1]:.2f} s); all out_CpG.bedGraph "
+          f"byte-identical to the host engine's ({card})", flush=True)
+    if torch.cuda.device_count() == 1 and (
+            type(be_cli).__name__ != "DeviceBackend"
+            or counts["pileup2"] <= 0 or be_cli.host_routed != 0):
+        raise AssertionError("MDTPU_ENGINE=mesh on one card did not run "
+                             "pileup2.cu")
+    return counts
+
+
+def hosts_phase(fa, bam, host_dir, pr_one, mb_one):
+    """Phase 6 on the 2M-read input: every host a process of the port's CLI
+    on the card. ``host_dir`` holds the host engine's ``out_CpG.bedGraph``,
+    ``pr_one`` and ``mb_one`` the one-host outputs of ``perRead -o
+    reads.txt`` and ``mbias --txt ... mb`` on the card."""
+    card = card_line()
+    args = [fa, bam, "-o", "out"]
+    steal0 = {"MDTPU_STEAL": "0"}
+    names = ["out_CpG.bedGraph"]
+    d = {k: os.path.join(WORK, f"hosts_{k}")
+         for k in ("one", "two", "live", "ctx_one", "ctx_two", "pr", "mb")}
+    for v in d.values():
+        os.makedirs(v)
+    t_1 = run_processes("extract", args, d["one"], [steal0])
+    t_2 = run_processes("extract", args, d["two"],
+                        [dict(e, **steal0) for e in sim_hosts(2)])
+    if os.path.getsize(os.path.join(d["two"], names[0])) > 200:
+        raise AssertionError("a simulated host wrote calls to the final file")
+    t_2m = merge_shards_cli(d["two"], names)
+    t_live = run_processes("extract", args, d["live"],
+                           [dict(e, **steal0) for e in live_ranks(2)])
+    for k in ("one", "two", "live"):
+        same_outputs(d[k], host_dir, names)
+    print(f"[6] extract as whole CLI processes on the card (start-up "
+          f"included), 2,000,000 reads: one host {t_1:.2f} s = "
+          f"{2e6 / t_1:,.0f} reads/s; two hosts at once under "
+          f"MDTPU_NUM_HOSTS=2 {t_2:.2f} s + merge-shards {t_2m:.2f} s = "
+          f"{2e6 / (t_2 + t_2m):,.0f} reads/s; a live two-rank gloo job over "
+          f"loopback (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; rank 0 "
+          f"merges) {t_live:.2f} s = {2e6 / t_live:,.0f} reads/s; "
+          f"out_CpG.bedGraph byte-identical to the host engine's in all "
+          f"three ({card})", flush=True)
+
+    ctx = ["--CHG", "--CHH", *args]
+    ctx_names = [f"out_{c}.bedGraph" for c in ("CpG", "CHG", "CHH")]
+    t_c1, _ = run_port(ctx, d["ctx_one"], {"MDTPU_ENGINE": "cuda", **steal0})
+    t_c2 = run_processes("extract", ctx, d["ctx_two"],
+                         [dict(e, **steal0) for e in sim_hosts(2)])
+    merge_shards_cli(d["ctx_two"], ctx_names)
+    same_outputs(d["ctx_two"], d["ctx_one"], ctx_names)
+    print(f"[6] extract --CHG --CHH, two hosts {t_c2:.2f} s (processes), one "
+          f"host in this process {t_c1:.2f} s: {', '.join(ctx_names)} "
+          "byte-identical to the one-host run on the card", flush=True)
+
+    t_p = run_processes("perRead", ["-o", "reads.txt", fa, bam], d["pr"],
+                        sim_hosts(2))
+    t_pm = merge_shards_cli(d["pr"], ["reads.txt"])
+    same_outputs(d["pr"], pr_one, ["reads.txt"])
+    margs = ["--txt", fa, bam, "mb"]
+    t_m = run_processes("mbias", margs, d["mb"], sim_hosts(2))
+    if sorted(os.listdir(d["mb"])) != ["mb.mbias_counters.h0.npy",
+                                          "mb.mbias_counters.h1.npy"]:
+        raise AssertionError("mbias hosts: expected two counter shards and "
+                             f"nothing else, got {os.listdir(d['mb'])}")
+    t_mf = run_processes("mbias", margs, d["mb"],
+                         [{"MDTPU_MBIAS_FINALIZE": "1"}], stdout_of=0)
+    names = same_dirs(d["mb"], mb_one)
+    print(f"[6] perRead -o, two hosts {t_p:.2f} s + merge-shards "
+          f"{t_pm:.2f} s: reads.txt byte-identical to the one-host run on "
+          f"the card; mbias --txt, two hosts {t_m:.2f} s + "
+          f"MDTPU_MBIAS_FINALIZE=1 {t_mf:.2f} s: {', '.join(names)} "
+          f"byte-identical to the one-host run on the card ({card})",
+          flush=True)
+
+
+def phases_only(opts, reset_counts, read_counts):
+    """--mesh-only and --hosts-only: the 2M-read input, the host engine's
+    and the card's one-host outputs, then phase 5 and / or phase 6."""
+    from methyldackel_tpu_torch.io.bai import build_bai
+    from methyldackel_tpu_torch.io.bam import BamFile
+    from methyldackel_tpu_torch.utils.simulate import write_synthetic_input
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        fa, bam = write_synthetic_input(WORK, 1_000_000, 150, 1 << 23, seed=0)
+        build_bai(BamFile(bam), bam + ".bai")
+        one = {k: os.path.join(WORK, k) for k in ("host0", "perRead_port",
+                                                  "mbias_port")}
+        for d in one.values():
+            os.makedirs(d)
+        run_host([fa, bam, "-o", "out"], one["host0"])
+        if opts.mesh_only:
+            mesh_phase(fa, bam, one["host0"], reset_counts, read_counts)
+        if opts.hosts_only:
+            run_port(["-o", "reads.txt", fa, bam], one["perRead_port"],
+                     {"MDTPU_ENGINE": "cuda"}, "perRead")
+            run_port(["--txt", fa, bam, "mb"], one["mbias_port"],
+                     {"MDTPU_ENGINE": "cuda"}, "mbias")
+            hosts_phase(fa, bam, one["host0"], one["perRead_port"],
+                        one["mbias_port"])
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    print("chip_smoke: --mesh-only / --hosts-only, the phases asked for "
+          "passed")
+    return 3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR", help="a checkout of the "
@@ -1359,6 +1877,12 @@ def main() -> int:
                     "the stage timers on, and print the device's busy share")
     ap.add_argument("--ptxas", action="store_true", help="build with "
                     "-Xptxas -v and print what the compiler says")
+    ap.add_argument("--mesh-only", action="store_true", help="after the "
+                    "build run only phase 5 (the mesh engine) and what it "
+                    "compares with; exit code 3 and no result line")
+    ap.add_argument("--hosts-only", action="store_true", help="after the "
+                    "build run only phase 6 (the multi-host runs) and what "
+                    "it compares with; exit code 3 and no result line")
     opts = ap.parse_args()
     import torch
 
@@ -1405,6 +1929,14 @@ def main() -> int:
           f" for sm_90a, in parallel: {time.perf_counter() - t0:.2f} s "
           f"({build.BUILD_DIR})", flush=True)
     parent = parent_kernels(opts.parent) if opts.parent else {}
+    if opts.mesh_only or opts.hosts_only:
+        return phases_only(opts, reset_counts, read_counts)
+
+    if not opts.kernels_only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        t_input = time.perf_counter()
+        input_writer = start_input_writer()
 
     # ---- phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1484,8 +2016,6 @@ def main() -> int:
         return 3
 
     # ---- phase 3: the main paths end to end
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
     paths = (
         ("default extract", [], {}, ("pileup2",)),
         ("--minOppositeDepth 5 --maxVariantFrac 0.1",
@@ -1496,16 +2026,16 @@ def main() -> int:
     )
     launches = {}
     try:
-        from methyldackel_tpu_torch.io.bai import build_bai
-        from methyldackel_tpu_torch.io.bam import BamFile
         from methyldackel_tpu_torch.utils.simulate import \
             write_synthetic_input
 
-        t0 = time.perf_counter()
-        fa, bam = write_synthetic_input(WORK, 1_000_000, 150, 1 << 23, seed=0)
-        build_bai(BamFile(bam), bam + ".bai")
-        print(f"[3] wrote 2,000,000 reads of 150 bp over 8 Mb in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if input_writer.wait(timeout=600) != 0:
+            raise RuntimeError("writing the 2M-read input failed")
+        fa, bam = os.path.join(WORK, "sim.fa"), os.path.join(WORK, "sim.bam")
+        print(f"[3] 2,000,000 reads of 150 bp over 8 Mb, written by a "
+              f"process of its own during phase 2, ready "
+              f"{time.perf_counter() - t_input:.1f} s after its start",
+              flush=True)
         calls = {}
         for k, (name, extra, env, kernels) in enumerate(paths):
             dirs = [os.path.join(WORK, f"{d}{k}")
@@ -1520,27 +2050,32 @@ def main() -> int:
             counts = read_counts()
             backend = t_cuda[0][1]
             # the exact host engine in this process too (same run_extract,
-            # no backend), in turns with the port: cuda, host, host, cuda
-            t_host = [run_port(args, dirs[2], host_env) for _ in range(2)]
+            # no backend), in turns with the port: the default path cuda,
+            # host, host, cuda and the host engine once more in a process
+            # of its own; the two other paths cuda, host, cuda
+            t_host = [run_port(args, dirs[2], host_env)
+                      for _ in range(2 if k == 0 else 1)]
             t_cuda.append(run_port(args, dirs[0], cuda_env))
-            dt_ref = run_host(args, dirs[1])
-            same_outputs(dirs[0], dirs[1], ["out_CpG.bedGraph"])
-            same_outputs(dirs[2], dirs[1], ["out_CpG.bedGraph"])
+            same_outputs(dirs[0], dirs[2], ["out_CpG.bedGraph"])
+            own = ""
+            if k == 0:
+                dt_ref = run_host(args, dirs[1])
+                same_outputs(dirs[0], dirs[1], ["out_CpG.bedGraph"])
+                own = (f"; the port's CLI process with MDTPU_ENGINE=host "
+                       f"{dt_ref:.2f} s = {2e6 / dt_ref:,.0f} reads/s")
             calls[name] = open(os.path.join(dirs[0], "out_CpG.bedGraph"),
                                "rb").read().count(b"\n") - 1
-            rate = [2e6 / t for t, _ in t_cuda]
-            hrate = [2e6 / t for t, _ in t_host]
             print(f"[3] {name}, 2,000,000 reads of 150 bp: port cuda "
-                  f"{rate[0]:,.0f} and {rate[1]:,.0f} reads/s "
-                  f"({t_cuda[0][0]:.2f} s, {t_cuda[1][0]:.2f} s; kernel "
-                  f"launches {counts}, host-routed windows "
+                  + " and ".join(f"{2e6 / t:,.0f}" for t, _ in t_cuda)
+                  + " reads/s ("
+                  + ", ".join(f"{t:.2f} s" for t, _ in t_cuda)
+                  + f"; kernel launches {counts}, host-routed windows "
                   f"{backend.host_routed}); host engine in process "
-                  f"{hrate[0]:,.0f} and {hrate[1]:,.0f} reads/s "
-                  f"({t_host[0][0]:.2f} s, {t_host[1][0]:.2f} s); the port's "
-                  f"CLI process with MDTPU_ENGINE=host {dt_ref:.2f} s = "
-                  f"{2e6 / dt_ref:,.0f} reads/s; out_CpG.bedGraph "
-                  f"byte-identical, {calls[name]} CpG lines ({card})",
-                  flush=True)
+                  + " and ".join(f"{2e6 / t:,.0f}" for t, _ in t_host)
+                  + " reads/s ("
+                  + ", ".join(f"{t:.2f} s" for t, _ in t_host) + ")" + own
+                  + f"; out_CpG.bedGraph byte-identical, {calls[name]} CpG "
+                  f"lines ({card})", flush=True)
             if backend.host_routed != 0 \
                     or any(counts[kn] <= 0 for kn in kernels):
                 raise AssertionError(f"{name} did not run on the card")
@@ -1560,26 +2095,21 @@ def main() -> int:
             ("perRead", ["-o", "reads.txt", fa, bam]),
         )
         for cmd, args in subcommands:
-            dirs = [os.path.join(WORK, f"{cmd}_{d}")
-                    for d in ("port", "host", "hostin")]
+            dirs = [os.path.join(WORK, f"{cmd}_{d}") for d in ("port", "host")]
             for d in dirs:
                 os.makedirs(d)
             t_cuda, backend = run_port(args, dirs[0],
                                        {"MDTPU_ENGINE": "cuda"}, cmd)
-            t_host, _ = run_port(args, dirs[2], {"MDTPU_ENGINE": "host"}, cmd)
-            dt_ref = run_host(args, dirs[1], cmd)
+            t_host, _ = run_port(args, dirs[1], {"MDTPU_ENGINE": "host"}, cmd)
             names = same_dirs(dirs[0], dirs[1])
-            same_dirs(dirs[2], dirs[1])
             print(f"[3] {cmd}, 2,000,000 reads of 150 bp: port cuda "
                   f"{2e6 / t_cuda:,.0f} reads/s ({t_cuda:.2f} s; device "
                   f"program launches {backend.launches}"
                   + (f", rows redone on the host {backend.rows_redone}"
                      if cmd == "perRead" else "")
                   + f"); host engine in process {2e6 / t_host:,.0f} reads/s "
-                  f"({t_host:.2f} s); the port's CLI process with "
-                  f"MDTPU_ENGINE=host {dt_ref:.2f} s = {2e6 / dt_ref:,.0f} "
-                  f"reads/s; {', '.join(names)} byte-identical ({card})",
-                  flush=True)
+                  f"({t_host:.2f} s); {', '.join(names)} byte-identical "
+                  f"({card})", flush=True)
             if backend.launches["reduce"] <= 0 \
                     or backend.launches["legacy"] != 0:
                 raise AssertionError(f"{cmd} did not take the packed path "
@@ -1714,10 +2244,17 @@ def main() -> int:
                                      "kernel")
             if cmd == "perRead" and be.rows_redone <= 0:
                 raise AssertionError(f"{name}: no row was redone")
+
+        # ---- phases 5-6: the mesh engine and the multi-host runs
+        mesh_counts = mesh_phase(fa, bam, os.path.join(WORK, "host0"),
+                                 reset_counts, read_counts)
+        hosts_phase(fa, bam, os.path.join(WORK, "host0"),
+                    os.path.join(WORK, "perRead_port"),
+                    os.path.join(WORK, "mbias_port"))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print("[5] kernel ms (device, cold L2 / wrapper call / plain version): "
+    print("[7] kernel ms (device, cold L2 / wrapper call / plain version): "
           + "; ".join(f"{nm} {r['ms']:.4f} / {r['wrapper_ms']:.4f} / "
                       f"{r['plain_ms']:.4f}" for nm, r in (
                           ("pileup2 candidate space", r_cand),
@@ -1748,6 +2285,7 @@ def main() -> int:
         "source": csrc + source,
         "replaces": "methyldackel_tpu/ops/" + replaces,
         "launches": launches[key],
+        "launches_mesh_cli": mesh_counts[key],
         "max_abs_err": results[key]["err"],
         "ms": results[key]["ms"],
         "plain_ms": results[key]["plain_ms"],

@@ -4,13 +4,14 @@
 are copied here).
 
 ``extract`` runs the port's ``engine.extract.run_extract`` with the port's
-backend (``MDTPU_ENGINE``: ``cuda``, the default, or ``host``; see
+backend (``MDTPU_ENGINE``: ``cuda``, the default, ``mesh`` or ``host``; see
 ``parallel.select_backend``). ``mbias`` (``engine.mbias``) and ``perRead``
 (``engine.perread``) pick their backends under the same rule.
 ``mergeContext`` is host-only.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 from . import REFERENCE_VERSION, __version__
@@ -335,8 +336,11 @@ def _parse_extract(argv):
 
 def extract(argv, device=None):
     """Run ``extract``; returns (rc, backend). ``device`` ("cuda" or
-    "cpu") builds the port's backend on that device; None selects it from
-    MDTPU_ENGINE. One host only: multi-host runs are a later slice."""
+    "cpu") builds the port's backend on that device (the mesh backend under
+    MDTPU_ENGINE=mesh); None selects it from MDTPU_ENGINE. In a multi-host
+    job (``parallel.distributed.host_role``) only host 0 creates the final
+    files and their headers; every host writes per-window shards that
+    reassemble in window order."""
     rc, cfg, opref, pos = _parse_extract(argv)
     if rc is not None:
         return rc, None
@@ -351,16 +355,22 @@ def extract(argv, device=None):
         if rc is not None:
             return rc, None
 
+    from .parallel.distributed import host_role
+
+    cfg.hostId, cfg.nHosts = host_role()
     if opref is None:
         opref = pos[1].rsplit(".", 1)[0] if "." in pos[1] else pos[1]
         sys.stderr.write(f"writing to prefix:'{opref}'\n")
     streams = [None, None, None]
     opened = []
+    cfg.out_paths = [None, None, None]
     if cfg.cytosine_report:
         path = formats.output_name(cfg, opref, "")
-        f = open(path, "w")
-        streams = [f, f, f]
-        opened.append(f)
+        cfg.out_paths = [path, path, path]
+        if cfg.hostId == 0:
+            f = open(path, "w")
+            streams = [f, f, f]
+            opened.append(f)
     else:
         for slot, (keep, ctx) in enumerate(
                 [(cfg.keepCpG, "CpG"), (cfg.keepCHG, "CHG"),
@@ -368,6 +378,9 @@ def extract(argv, device=None):
             if not keep:
                 continue
             path = formats.output_name(cfg, opref, ctx)
+            cfg.out_paths[slot] = path
+            if cfg.hostId != 0:
+                continue
             f = open(path, "w")
             f.write(formats.METHYLKIT_HEADER if cfg.methylKit
                     else formats.header_line(cfg, ctx, opref))
@@ -380,6 +393,10 @@ def extract(argv, device=None):
         from .parallel import select_backend
 
         backend = select_backend(cfg)
+    elif os.environ.get("MDTPU_ENGINE") == "mesh":
+        from .parallel.mesh import make_mesh_backend
+
+        backend = make_mesh_backend(cfg, device=device)
     else:
         from .parallel.device import make_device_backend
 

@@ -10,9 +10,9 @@ sequence of data-parallel window computations:
 The per-window compute step is pluggable: the default host backend runs the
 exact numpy semantics; the device backend (parallel.device) runs the same
 math through the hand-written CUDA kernels of ops/ and is tested equal.
-Counterpart of methyldackel_tpu/engine/extract.py (the multi-host merge is
-not carried over: one host). Output is identical to the reference binary byte-for-byte on its own
-test fixtures.
+Counterpart of methyldackel_tpu/engine/extract.py, the multi-host window
+shards included (parallel/distributed.py). Output is identical to the
+reference binary byte-for-byte on its own test fixtures.
 """
 from __future__ import annotations
 
@@ -699,24 +699,36 @@ def run_extract(cfg, out_streams, compute_backend=None) -> int:
         state = start_window(tid, lpos, lend)
         return None if state is None else finish_window(state)
 
-    # One host only: the multi-host sharding of the genome cursor and its
-    # shard merge (methyldackel_tpu/parallel/distributed.py) are not ported
-    # (ROADMAP A.11).
-    if int(getattr(cfg, "nHosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "methyldackel_tpu_torch runs on one host: multi-host extract "
-            f"(nHosts={cfg.nHosts}) is not ported yet (ROADMAP A.11)")
+    # Multi-host sharding of the genome cursor: host h owns every
+    # window w with w % n_hosts == h; rows land in per-window shard files
+    # reassembled in window order (parallel/distributed.py) — the
+    # multi-host analogue of the ticket-ordered flush (extract.c:514-535).
+    host_id = int(getattr(cfg, "hostId", 0) or 0)
+    n_hosts = max(1, int(getattr(cfg, "nHosts", 1) or 1))
+    out_paths = getattr(cfg, "out_paths", None) or [None, None, None]
 
     def drain(widx, result):
         nonlocal n_variant_positions
         if result is None:
             return
         n_variant_positions += result.n_variant_positions
+        if n_hosts == 1:
+            for slot in range(3):
+                if result.lines[slot] and out_streams[slot] is not None:
+                    out_streams[slot].write("".join(result.lines[slot]))
+            return
+        texts = {}
         for slot in range(3):
-            if result.lines[slot] and out_streams[slot] is not None:
-                out_streams[slot].write("".join(result.lines[slot]))
+            if result.lines[slot] and out_paths[slot]:
+                texts.setdefault(out_paths[slot], []).append(
+                    "".join(result.lines[slot]))
+        for path, chunks in texts.items():
+            with open(f"{path}.h{host_id}.w{widx}", "w") as fh:
+                fh.write("".join(chunks))
 
     win_iter = enumerate(windows(hdr, fasta, cfg.chunkSize, g_tid, g_pos, g_end))
+    if n_hosts > 1:
+        win_iter = ((i, w) for i, w in win_iter if i % n_hosts == host_id)
     n_threads = max(1, int(getattr(cfg, "nThreads", 1) or 1))
     # Depth: deep enough that host prep keeps flowing through the one-time
     # per-process executable load (~20 s) of the first window's program;
@@ -1190,6 +1202,13 @@ def run_extract(cfg, out_streams, compute_backend=None) -> int:
             while inflight:
                 j, fut = inflight.popleft()
                 drain(j, complete(fut.result()))
+    if n_hosts > 1:
+        for s in out_streams:
+            if s is not None:
+                s.flush()
+        from ..parallel.distributed import barrier_and_merge
+
+        barrier_and_merge([p for p in dict.fromkeys(out_paths) if p])
     if _prewarm_th is not None:
         # A backend's prewarm only enqueues (fire-and-forget), so this
         # join is short; a daemon thread must not die inside a device call.

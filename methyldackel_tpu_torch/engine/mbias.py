@@ -5,11 +5,12 @@ The per-thread strandMeth counters + post-join merge of the reference
 max_cycle] counter tensor accumulated across genome windows — the window
 accumulation is associative, so the per-window deltas merge in any order.
 Deliberately no mate-overlap arbitration (MBias.c:160).
-Counterpart of methyldackel_tpu/engine/mbias.py (the multi-host counter
-shards are not carried over: one host).
+Counterpart of methyldackel_tpu/engine/mbias.py, the multi-host counter
+shards included (parallel/distributed.py).
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -34,13 +35,6 @@ def compute_mbias(cfg, bam, fasta, g_tid=0, g_pos=0, g_end=0, device=None):
     With -@ > 1 windows run on a thread pool; the per-window counter deltas
     are associative uint64 adds, so the merge is order-free — the form the
     reference's per-thread strandMeth merge takes here (MBias.c:541-552)."""
-    # One host only: the window residue classes of a multi-host run and
-    # their counter shards (methyldackel_tpu/parallel/distributed.py) are
-    # not ported (ROADMAP A.11).
-    if int(getattr(cfg, "nHosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "methyldackel_tpu_torch runs on one host: multi-host mbias "
-            f"(nHosts={cfg.nHosts}) is not ported yet (ROADMAP A.11)")
     hdr = bam.header
     # Counters grow to the longest read cycle seen, window by window — the
     # reference's growStrandMeth (MBias.c:16-40); nothing needs a whole-file
@@ -122,7 +116,15 @@ def compute_mbias(cfg, bam, fasta, g_tid=0, g_pos=0, g_end=0, device=None):
             lpos, lend, keep_ctx, cfg.minPhred, wl,
         )
 
+    # Multi-host: host h computes the counter sum over its window residue
+    # class; the cross-host merge is the same associative add (the
+    # multi-host form of the reference's per-thread strandMeth merge,
+    # MBias.c:541-552).
+    host_id = int(getattr(cfg, "hostId", 0) or 0)
+    n_hosts = max(1, int(getattr(cfg, "nHosts", 1) or 1))
     win_iter = windows(hdr, fasta, cfg.chunkSize, g_tid, g_pos, g_end)
+    if n_hosts > 1:
+        win_iter = (w for i, w in enumerate(win_iter) if i % n_hosts == host_id)
     n_threads = max(1, int(getattr(cfg, "nThreads", 1) or 1))
     if n_threads == 1:
         for w in win_iter:
@@ -234,7 +236,7 @@ def mbias_usage():
 
 def mbias(argv, device=None):
     """The mbias subcommand. ``device`` None selects the backend by
-    MDTPU_ENGINE (``cuda``, the default, or ``host``); "cpu" or "cuda"
+    MDTPU_ENGINE (``cuda``, the default, ``mesh`` or ``host``); "cpu" or "cuda"
     builds the device backend there. Returns (rc, backend)."""
     from ..cli import getopt_long, GetoptError, print_version
 
@@ -344,14 +346,63 @@ def mbias(argv, device=None):
             return 1, None
         sys.stderr.write(f"Parsed {cfg.bed.n} regions in {cfg.bedName}\n")
 
-    counters, backend = compute_mbias(cfg, bam, fasta, g_tid, g_pos, g_end,
-                                      device)
+    from ..parallel.distributed import _live, host_role
+
+    host_id, n_hosts = host_role()
+    shard_base = (opref or cfg.BAMName) + ".mbias_counters"
+    backend = None
+    if os.environ.get("MDTPU_MBIAS_FINALIZE"):
+        # Finalize an env-simulated multi-host run: rerun the same command
+        # with MDTPU_MBIAS_FINALIZE=1 once every host has written its
+        # counter shard — the full option context is on the command line.
+        counters = _sum_counter_shards(shard_base)
+        if counters is None:
+            sys.stderr.write(f"No counter shards found at {shard_base}.h*.npy\n")
+            return 1, None
+    else:
+        cfg.hostId, cfg.nHosts = host_id, n_hosts
+        counters, backend = compute_mbias(cfg, bam, fasta, g_tid, g_pos,
+                                          g_end, device)
+        if n_hosts > 1:
+            np.save(f"{shard_base}.h{host_id}.npy", counters)
+            if not _live():
+                sys.stderr.write(
+                    f"host {host_id}/{n_hosts}: wrote {shard_base}.h{host_id}.npy; "
+                    "rerun with MDTPU_MBIAS_FINALIZE=1 to merge and render\n"
+                )
+                return 0, backend
+            import torch.distributed as dist
+
+            dist.barrier()
+            if host_id != 0:
+                return 0, backend
+            counters = _sum_counter_shards(shard_base)
     meths = counters_to_strandmeths(counters)
     if SVG:
         svg.make_svgs(opref, meths, cfg.keepCpG + 2 * cfg.keepCHG + 4 * cfg.keepCHH)
     if txt:
         svg.make_txt(meths)
     return 0, backend
+
+
+def _sum_counter_shards(shard_base: str):
+    """Sum every {shard_base}.h*.npy counter shard (growing to the longest
+    cycle axis) and remove them. Returns None if no shards exist."""
+    import glob
+
+    paths = sorted(glob.glob(glob.escape(shard_base) + ".h*.npy"))
+    if not paths:
+        return None
+    total = np.zeros((4, 2, 2, 0), dtype=np.uint64)
+    for p in paths:
+        c = np.load(p)
+        if c.shape[3] > total.shape[3]:
+            grown = np.zeros(total.shape[:3] + (c.shape[3],), dtype=np.uint64)
+            grown[..., : total.shape[3]] = total
+            total = grown
+        total[..., : c.shape[3]] += c.astype(np.uint64)
+        os.unlink(p)
+    return total
 
 
 def mbias_main(argv, device=None) -> int:

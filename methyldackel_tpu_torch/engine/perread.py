@@ -5,8 +5,8 @@ including its quirk: a base failing the phred gate advances the cursor and
 the NEXT base is then evaluated in the same iteration WITHOUT a quality
 re-check (perRead.c:59-63). The device backend tallies the rows without a
 sub-phred base from packed codes and leaves the others to this exact walker.
-Counterpart of methyldackel_tpu/engine/perread.py (the multi-host window
-shards are not carried over: one host).
+Counterpart of methyldackel_tpu/engine/perread.py, the multi-host window
+shards included (parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -178,13 +178,6 @@ def run_perread(cfg, out, device=None):
     """The window loop of perRead, rows written to ``out`` in genome order.
     ``device`` None selects the backend by MDTPU_ENGINE; "cpu" or "cuda"
     builds it there. Returns the device backend (None: the host engine)."""
-    # One host only: the window shards of a multi-host run and their merge
-    # (methyldackel_tpu/parallel/distributed.py) are not ported (ROADMAP
-    # A.11).
-    if int(getattr(cfg, "nHosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "methyldackel_tpu_torch runs on one host: multi-host perRead "
-            f"(nHosts={cfg.nHosts}) is not ported yet (ROADMAP A.11)")
     if device is None:
         from ..parallel import select_perread_backend
 
@@ -281,16 +274,28 @@ def run_perread(cfg, out, device=None):
     # perRead's scheduler claims windows WITHOUT the CpG/CHG boundary
     # adjustment (perRead.c:133-156 has no adjustBounds call); with -@ > 1
     # windows run on a thread pool and drain in genome order (the
-    # ticket-ordered flush, perRead.c:201-212).
+    # ticket-ordered flush, perRead.c:201-212). With multiple hosts, host h
+    # owns windows w % n == h and rows land in per-window shard files
+    # (parallel/distributed.py merge_shards reassembles in window order).
+    host_id = int(getattr(cfg, "hostId", 0) or 0)
+    n_hosts = max(1, int(getattr(cfg, "nHosts", 1) or 1))
+    out_path = getattr(cfg, "out_path", None)
 
-    def emit(lines):
+    def emit(widx, lines):
         if callable(lines):
             lines = lines()  # deferred device readback + row formatting
-        if lines:
+        if not lines:
+            return
+        if n_hosts == 1:
             out.write("".join(lines))
+        else:
+            with open(f"{out_path}.h{host_id}.w{widx}", "w") as fh:
+                fh.write("".join(lines))
 
-    win_iter = windows(hdr, fasta, cfg.chunkSize, g_tid, g_pos, g_end,
-                       adjust=False)
+    win_iter = enumerate(windows(hdr, fasta, cfg.chunkSize, g_tid, g_pos,
+                                 g_end, adjust=False))
+    if n_hosts > 1:
+        win_iter = ((i, w) for i, w in win_iter if i % n_hosts == host_id)
     n_threads = max(1, int(getattr(cfg, "nThreads", 1) or 1))
     if n_threads == 1:
         if dispatch_fn is not None:
@@ -300,27 +305,37 @@ def run_perread(cfg, out, device=None):
 
             depth = max(1, int(os.environ.get("MDTPU_PIPELINE", "6") or 1))
             inflight: "_deque" = _deque()
-            for w in win_iter:
+            for i, w in win_iter:
                 while len(inflight) >= depth:
-                    emit(inflight.popleft())
-                inflight.append(process_window(*w))
+                    j, res = inflight.popleft()
+                    emit(j, res)
+                inflight.append((i, process_window(*w)))
             while inflight:
-                emit(inflight.popleft())
+                j, res = inflight.popleft()
+                emit(j, res)
         else:
-            for w in win_iter:
-                emit(process_window(*w))
+            for i, w in win_iter:
+                emit(i, process_window(*w))
     else:
         from concurrent.futures import ThreadPoolExecutor
         from collections import deque
 
         with ThreadPoolExecutor(max_workers=n_threads) as pool:
             inflight = deque()
-            for w in win_iter:
+            for i, w in win_iter:
                 while len(inflight) >= 2 * n_threads:
-                    emit(inflight.popleft().result())
-                inflight.append(pool.submit(process_window, *w))
+                    j, fut = inflight.popleft()
+                    emit(j, fut.result())
+                inflight.append((i, pool.submit(process_window, *w)))
             while inflight:
-                emit(inflight.popleft().result())
+                j, fut = inflight.popleft()
+                emit(j, fut.result())
+    if n_hosts > 1:
+        if out is not None:
+            out.flush()
+        from ..parallel.distributed import barrier_and_merge
+
+        barrier_and_merge([out_path])
     return device_walker
 
 
@@ -366,7 +381,7 @@ def perread_usage():
 
 def perread(argv, device=None):
     """The perRead subcommand. ``device`` None selects the backend by
-    MDTPU_ENGINE (``cuda``, the default, or ``host``); "cpu" or "cuda"
+    MDTPU_ENGINE (``cuda``, the default, ``mesh`` or ``host``); "cpu" or "cuda"
     builds the device backend there. Returns (rc, backend)."""
     from ..cli import getopt_long, GetoptError, print_version
     from ..config import perread_defaults
@@ -433,7 +448,14 @@ def perread(argv, device=None):
 
     cfg.FastaName = pos[0]
     cfg.BAMName = pos[1]
-    if oname is not None:
+    from ..parallel.distributed import host_role
+
+    cfg.hostId, cfg.nHosts = host_role()
+    cfg.out_path = oname
+    if cfg.nHosts > 1 and oname is None:
+        sys.stderr.write("Multi-host perRead requires -o (stdout cannot be sharded)\n")
+        return 1, None
+    if oname is not None and (cfg.nHosts == 1 or cfg.hostId == 0):
         try:
             ofile = open(oname, "w")
         except OSError:

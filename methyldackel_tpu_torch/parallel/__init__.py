@@ -6,13 +6,19 @@ subcommands:
 - ``cuda`` (the default, also when the variable is unset): the card; raises
   when ``torch.cuda.is_available()`` is false. The port never moves a run to
   the CPU by itself.
+- ``mesh``: for ``extract`` the (dp, sp) grid over every card present
+  (``mesh.make_mesh_backend``; with one card that is the ``cuda`` backend
+  unless ``MDTPU_MESH_FORCE=1``), for ``mbias`` and ``perRead`` the card's
+  backend (their per-window counters merge by an associative add already).
+  Raises without a card, as ``cuda`` does.
 - ``host``: None, the port's exact numpy engine (``engine.extract``,
   ``engine.mbias``, ``engine.perread``).
 
 Anything else, ``auto`` included, is rejected. The port's device programs
 run on the CPU (each kernel's plain PyTorch version) only when a caller
 builds the backend on it: ``make_device_backend(cfg, "cpu")``, which is what
-``cli.extract(argv, device="cpu")`` does (likewise ``engine.mbias.mbias`` and
+``cli.extract(argv, device="cpu")`` does (under ``MDTPU_ENGINE=mesh``:
+``make_mesh_backend(cfg, device="cpu")``; likewise ``engine.mbias.mbias`` and
 ``engine.perread.perread``).
 """
 from __future__ import annotations
@@ -24,9 +30,9 @@ def _select(cfg, make_fn_name):
     mode = os.environ.get("MDTPU_ENGINE", "cuda")
     if mode == "host":
         return None
-    if mode != "cuda":
+    if mode not in ("cuda", "mesh"):
         raise ValueError(f"MDTPU_ENGINE={mode!r}: the port runs 'cuda' (the "
-                         "default) or 'host'")
+                         "default), 'mesh' or 'host'")
     import torch
 
     if not torch.cuda.is_available():
@@ -36,6 +42,10 @@ def _select(cfg, make_fn_name):
             "pass the CPU device explicitly (cli.extract(argv, device='cpu')"
             f" / {make_fn_name}(cfg, 'cpu')) to run the kernels' plain "
             "PyTorch versions.")
+    if mode == "mesh" and make_fn_name == "make_device_backend":
+        from .mesh import make_mesh_backend
+
+        return make_mesh_backend(cfg, device="cuda")
     from . import device
 
     return getattr(device, make_fn_name)(cfg, "cuda")

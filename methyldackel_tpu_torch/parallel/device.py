@@ -200,6 +200,29 @@ def _hard_rows_v2(seq, qual, refpos, st, hard, a_np, b_np, pair_simple,
             woff)
 
 
+def dense_rows(batch, strand_arr, kidx, win_start, W, rstrand):
+    """The host prep of a window's raw rows for the dense programs
+    (``programs.arbitrate_device``, ``programs.pileup_device``), shared by
+    the dense dispatch and the mesh backend: the kept rows ``kidx`` of
+    ``batch``, trimmed and gated on the host already, as (seq u8 [n, L],
+    qual u8 [n, L], refpos i32 [n, L], strand i32 [n], keep_base bool
+    [n, L] or None, pair_a, pair_b). ``keep_base`` is the per-base strand
+    mask of a stranded BED (readStrandOverlapsBED, bed.c:56-64; the host
+    path's formula), None without a strand column; the pairs are the exact
+    qname pairing (``semantics.pair_mates_batch``) as indices into the kept
+    rows."""
+    refpos = batch.refpos[kidx]
+    keep_base = None
+    if rstrand is not None:
+        safe = np.clip(refpos - win_start, 0, W - 1)
+        rs = rstrand[safe]
+        odd = (strand_arr[kidx].astype(np.int64) & 1)[:, None] == 1
+        keep_base = (rs == 0) | ((rs == 1) & odd) | ((rs == 2) & ~odd)
+    a_np, b_np = sem.pair_mates_batch(batch, kidx)
+    return (batch.seq[kidx], batch.qual[kidx], refpos.astype(np.int32),
+            strand_arr[kidx].astype(np.int32), keep_base, a_np, b_np)
+
+
 class _DeviceLane:
     """What every backend holds: an explicit device ("cuda" or "cuda:N" runs
     the kernels, "cpu" their plain PyTorch versions, for the CPU tests), on
@@ -331,21 +354,14 @@ class DeviceBackend(_DeviceLane):
         into the four channels (``programs.pileup_device``), under the
         per-base strand mask of a stranded BED. Exact shapes. Returns
         fetch() -> uint32 [W, 4]."""
-        L = batch.seq.shape[1]
-        refpos_np = batch.refpos[kidx]
-        keep_base_np = None
-        if rstrand is not None:
-            safe = np.clip(refpos_np - win_start, 0, W - 1)
-            rs = rstrand[safe]
-            odd = (strand_arr[kidx].astype(np.int64) & 1)[:, None] == 1
-            keep_base_np = (rs == 0) | ((rs == 1) & odd) | ((rs == 2) & ~odd)
-        a_np, b_np = sem.pair_mates_batch(batch, kidx)
-        ovw = hp.round_up(max(2 * L, 1), 128)
+        seq_np, qual_np, refpos_np, st_np, keep_base_np, a_np, b_np = \
+            dense_rows(batch, strand_arr, kidx, win_start, W, rstrand)
+        ovw = hp.round_up(max(2 * seq_np.shape[1], 1), 128)
         with self._stream_ctx():
-            seq = self._upload(batch.seq[kidx])
-            qual = self._upload(batch.qual[kidx])
-            refpos = self._upload(refpos_np.astype(np.int32))
-            st = self._upload(strand_arr[kidx].astype(np.int32))
+            seq = self._upload(seq_np)
+            qual = self._upload(qual_np)
+            refpos = self._upload(refpos_np)
+            st = self._upload(st_np)
             keep_base = None if keep_base_np is None \
                 else self._upload(keep_base_np)
             qual2 = programs.arbitrate_device(

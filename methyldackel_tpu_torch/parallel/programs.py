@@ -7,8 +7,9 @@ Counterparts, under the same names, of the jitted XLA programs of
 - the dense window pipeline of ``extract`` (``strand_device``,
   ``classify_context_device``, ``trim_device``, ``meth_state_device``,
   ``conv_eff_device``, ``arbitrate_device``, ``pileup_device``,
-  ``window_pipeline``), which serves the windows the tiled kernels do not
-  take: a BED strand column, reads longer than 256 bp, ``MDTPU_NO_PALLAS=1``;
+  ``window_front``, ``window_pipeline``), which serves the windows the tiled
+  kernels do not take (a BED strand column, reads longer than 256 bp,
+  ``MDTPU_NO_PALLAS=1``) and the sharded step of ``parallel.mesh``;
 - the ``mbias`` programs (``_mbias_reduce`` over host-packed 2-bit codes,
   ``mbias_device`` over raw rows);
 - the ``perRead`` programs (``_perread_reduce`` over host-packed 2-bit
@@ -225,11 +226,19 @@ def pileup_device(seq, qual, refpos, strand, keep_read, keep_base, ref,
     unmeth, opposite-strand depth and opposite-strand variants per column
     of [win_start, win_start + wpad). ``keep_base`` bool [N, L] or None for
     all kept. Returns int32 [wpad, 4]."""
+    if wpad <= 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=seq.device)
     valid = (refpos >= win_start) & (refpos < win_start + wpad) \
         & keep_read[:, None]
     if keep_base is not None:
         valid &= keep_base
-    rp = torch.where(valid, refpos - win_start, wpad).reshape(-1)
+    # A base that is not counted adds 0 in every channel, so it needs no
+    # column of its own: it goes to the column its coordinate falls on
+    # modulo the width. One dump column would take every such base of a
+    # column slice (three quarters of all bases when the window is cut in
+    # four) as atomic adds on a single address.
+    rp = torch.where(valid, refpos - win_start,
+                     refpos.remainder(wpad)).reshape(-1)
     ridx = torch.where(valid, refpos - win_offset, 0)
     ridx = ridx.clamp_(max=ref.shape[0] - 1).long()
     refbase = torch.where(valid, ref[ridx], 0)
@@ -247,24 +256,21 @@ def pileup_device(seq, qual, refpos, strand, keep_read, keep_base, ref,
         off & (seq != BASE_N) & torch.where(odd, seq != BASE_G,
                                             seq != BASE_C),
     )
-    # one flat int32 row per channel, never an int64 [N, L, 4]; the dump
-    # column wpad takes every base that is not counted
-    counters = torch.zeros((4, wpad + 1), dtype=torch.int32,
-                           device=seq.device)
+    # one flat int32 row per channel, never an int64 [N, L, 4]
+    counters = torch.zeros((4, wpad), dtype=torch.int32, device=seq.device)
     for c, chan in enumerate(chans):
         counters[c].index_add_(0, rp, chan.reshape(-1).to(torch.int32))
-    return counters[:, :wpad].T.contiguous()
+    return counters.T.contiguous()
 
 
-def window_pipeline(seq, qual, refpos, flag, xg, l_qseq, mapq, keep_read,
-                    keep_base, pair_a, pair_b, pair_valid, ref, bounds,
-                    absolute_bounds, win_offset, win_start, *, wpad, ovw,
-                    min_phred, min_conv_eff, use_overlaps):
-    """Everything from strand inference to the pileup counters on the
-    device: strand, context, the conversion-efficiency gate, trimming,
-    mate-overlap arbitration, pileup. ``mapq`` is carried for the
-    reference's signature (the MAPQ gate is the host's). Returns int32
-    [wpad, 4]."""
+def window_front(seq, qual, refpos, flag, xg, l_qseq, keep_read, pair_a,
+                 pair_b, pair_valid, ref, bounds, absolute_bounds, win_offset,
+                 *, ovw, min_phred, min_conv_eff, use_overlaps):
+    """Everything of the window pipeline that does not depend on the
+    window's columns: strand, context, the conversion-efficiency gate,
+    trimming and mate-overlap arbitration. The mesh step (``parallel.mesh``)
+    runs it once a row shard and the pileup once a column slice. Returns
+    (seq, qual, strand, keep_read)."""
     strand = strand_device(flag, xg)
     if min_conv_eff > 0.0:
         ctype = classify_context_device(ref)
@@ -277,6 +283,23 @@ def window_pipeline(seq, qual, refpos, flag, xg, l_qseq, mapq, keep_read,
     if use_overlaps:
         qual = arbitrate_device(seq, qual, refpos, strand, pair_a, pair_b,
                                 pair_valid, ovw)
+    return seq, qual, strand, keep_read
+
+
+def window_pipeline(seq, qual, refpos, flag, xg, l_qseq, mapq, keep_read,
+                    keep_base, pair_a, pair_b, pair_valid, ref, bounds,
+                    absolute_bounds, win_offset, win_start, *, wpad, ovw,
+                    min_phred, min_conv_eff, use_overlaps):
+    """Everything from strand inference to the pileup counters on the
+    device: strand, context, the conversion-efficiency gate, trimming,
+    mate-overlap arbitration, pileup. ``mapq`` is carried for the
+    reference's signature (the MAPQ gate is the host's). Returns int32
+    [wpad, 4]."""
+    seq, qual, strand, keep_read = window_front(
+        seq, qual, refpos, flag, xg, l_qseq, keep_read, pair_a, pair_b,
+        pair_valid, ref, bounds, absolute_bounds, win_offset, ovw=ovw,
+        min_phred=min_phred, min_conv_eff=min_conv_eff,
+        use_overlaps=use_overlaps)
     return pileup_device(seq, qual, refpos, strand, keep_read, keep_base,
                          ref, win_offset, win_start, wpad, min_phred)
 

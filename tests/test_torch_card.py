@@ -338,3 +338,64 @@ def test_programs_on_card_equal_the_cpu_device():
         cpu, gpu = [(x if isinstance(x, tuple) else (x,)) for x in (cpu, gpu)]
         for c, g in zip(cpu, gpu):
             assert torch.equal(c, g.cpu()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 4, 1])
+def test_mesh_gates_on_card(n):
+    """The three gates of the JAX package's multi-chip dry run with ``n``
+    shards as ``n`` streams of the card, five rounds each (a missing
+    dependency between two streams shows sometimes, not always), against the
+    port's host functions."""
+    _need_card()
+    from chip_smoke import mesh_gates
+
+    sums = mesh_gates("cuda", n=n, rounds=5)
+    assert all(s > 100 for s in sums)
+
+
+@pytest.mark.cuda
+def test_mesh_backend_through_run_extract_on_card(tmp_path):
+    """run_extract with the 8-cell mesh backend on the card writes the host
+    engine's bytes, every window through the sharded step."""
+    _need_card()
+    from chip_smoke import run_extract_with, run_host, same_outputs
+    from methyldackel_tpu_torch.parallel import mesh as pm
+    from methyldackel_tpu_torch.utils.simulate import write_synthetic_input
+
+    fa, bam = write_synthetic_input(str(tmp_path), 4000, 120, 40000, seed=9)
+    for d in ("mesh", "host"):
+        (tmp_path / d).mkdir()
+    args = ["--chunkSize", "1000000", fa, bam, "-o", "out"]
+    run_host(args, str(tmp_path / "host"))
+    _dt, backend = run_extract_with(
+        lambda cfg: pm.make_mesh_backend(cfg, n_devices=8, device="cuda"),
+        fa, bam, str(tmp_path / "mesh"), {"MDTPU_STEAL": "0"})
+    assert backend.launches["sharded"] >= 1 and backend.host_routed == 0
+    same_outputs(str(tmp_path / "mesh"), str(tmp_path / "host"),
+                 ["out_CpG.bedGraph"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["simulated", "live"])
+def test_two_host_extract_on_card(tmp_path, job):
+    """Two processes of the port's CLI share the card as two hosts
+    (MDTPU_NUM_HOSTS=2, then merge-shards; or a live gloo job over loopback,
+    where rank 0 merges): the bytes of the host engine."""
+    _need_card()
+    from chip_smoke import (live_ranks, merge_shards_cli, run_host,
+                            run_processes, same_outputs, sim_hosts)
+    from methyldackel_tpu_torch.utils.simulate import write_synthetic_input
+
+    fa, bam = write_synthetic_input(str(tmp_path), 4000, 120, 40000, seed=9)
+    for d in ("two", "host"):
+        (tmp_path / d).mkdir()
+    args = ["--chunkSize", "7000", fa, bam, "-o", "out"]
+    run_host(args, str(tmp_path / "host"))
+    envs = sim_hosts(2) if job == "simulated" else live_ranks(2)
+    run_processes("extract", args, str(tmp_path / "two"),
+                  [dict(e, MDTPU_STEAL="0") for e in envs])
+    if job == "simulated":
+        merge_shards_cli(str(tmp_path / "two"), ["out_CpG.bedGraph"])
+    same_outputs(str(tmp_path / "two"), str(tmp_path / "host"),
+                 ["out_CpG.bedGraph"])

@@ -324,20 +324,22 @@ def test_mbias_cli_no_svg_and_region(tmp_path, monkeypatch, synthetic_input):
 
 
 def test_select_mbias_backend_modes(monkeypatch):
-    """host is the numpy engine; cuda (also the default) needs a card and
-    raises without one, naming MDTPU_ENGINE=host; auto and anything else is
-    rejected, never a silent move to the CPU."""
+    """host is the numpy engine; cuda (also the default) and mesh (for mbias
+    the card's backend) need a card and raise without one, naming
+    MDTPU_ENGINE=host; auto and anything else is rejected, never a silent
+    move to the CPU."""
     cfg = port_config(Config())
     monkeypatch.setenv("MDTPU_ENGINE", "host")
     assert select_mbias_backend(cfg) is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mode in ("auto", "jax", "mesh"):
+    for mode in ("auto", "jax"):
         monkeypatch.setenv("MDTPU_ENGINE", mode)
         with pytest.raises(ValueError, match=mode):
             select_mbias_backend(cfg)
-    monkeypatch.setenv("MDTPU_ENGINE", "cuda")
-    with pytest.raises(RuntimeError, match="MDTPU_ENGINE=host"):
-        select_mbias_backend(cfg)
+    for mode in ("cuda", "mesh"):
+        monkeypatch.setenv("MDTPU_ENGINE", mode)
+        with pytest.raises(RuntimeError, match="MDTPU_ENGINE=host"):
+            select_mbias_backend(cfg)
     monkeypatch.delenv("MDTPU_ENGINE")
     with pytest.raises(RuntimeError, match="MDTPU_ENGINE=host"):
         select_mbias_backend(cfg)
@@ -358,9 +360,21 @@ def test_mbias_cli_defaults_to_the_card(tmp_path, monkeypatch,
 
 
 def test_mbias_multi_host_is_not_ported(synthetic_input):
+    """What this test once refused now runs: with nHosts > 1 compute_mbias
+    counts the windows of its residue class only, and the classes add up to
+    the one-host counters (uint64 adds, exact)."""
     fa, bam = synthetic_input
-    cfg = port_config(Config())
-    cfg.nHosts = 2
     fasta = FastaFile(fa)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        pmbias.compute_mbias(cfg, BamFile(bam), fasta, device="cpu")
+
+    def counters(n_hosts, host_id):
+        cfg = port_config(_cfg(3000))
+        cfg.nHosts, cfg.hostId = n_hosts, host_id
+        got, backend = pmbias.compute_mbias(cfg, BamFile(bam), fasta,
+                                            device="cpu")
+        assert backend is not None
+        return got
+
+    whole = counters(1, 0)
+    parts = [counters(3, h) for h in range(3)]
+    assert all(0 < p.sum() < whole.sum() for p in parts)
+    np.testing.assert_array_equal(sum(parts), whole)

@@ -372,9 +372,10 @@ def test_select_perread_backend_modes(monkeypatch):
         monkeypatch.setenv("MDTPU_ENGINE", mode)
         with pytest.raises(ValueError, match=mode):
             select_perread_backend(cfg)
-    monkeypatch.setenv("MDTPU_ENGINE", "cuda")
-    with pytest.raises(RuntimeError, match="MDTPU_ENGINE=host"):
-        select_perread_backend(cfg)
+    for mode in ("cuda", "mesh"):  # mesh: for perRead the card's backend
+        monkeypatch.setenv("MDTPU_ENGINE", mode)
+        with pytest.raises(RuntimeError, match="MDTPU_ENGINE=host"):
+            select_perread_backend(cfg)
     with pytest.raises(RuntimeError, match="is_available"):
         pdev.make_perread_backend(cfg, "cuda")
 
@@ -387,9 +388,29 @@ def test_perread_cli_defaults_to_the_card(monkeypatch, synthetic_input):
         port_cli.main(["perRead", fa, bam])
 
 
-def test_perread_multi_host_is_not_ported(synthetic_input):
+def test_perread_multi_host_is_not_ported(synthetic_input, tmp_path):
+    """What this test once refused now runs: with nHosts > 1 run_perread
+    writes one shard file a window of its residue class and nothing to the
+    stream, and merge_shards puts the one-host rows back in window order."""
+    from methyldackel_tpu_torch.parallel.distributed import merge_shards
+
     fa, bam = synthetic_input
-    cfg = perread_defaults()
-    cfg.FastaName, cfg.BAMName, cfg.nHosts = fa, bam, 2
-    with pytest.raises(NotImplementedError, match="A.11"):
-        pperread.run_perread(cfg, io.StringIO(), device="cpu")
+
+    def run(n_hosts, host_id, out):
+        cfg = perread_defaults()
+        cfg.FastaName, cfg.BAMName, cfg.chunkSize = fa, bam, 3000
+        cfg.nHosts, cfg.hostId = n_hosts, host_id
+        cfg.out_path = str(tmp_path / "pr.txt")
+        assert pperread.run_perread(cfg, out, device="cpu") is not None
+
+    whole = io.StringIO()
+    run(1, 0, whole)
+    for h in range(2):
+        quiet = io.StringIO()
+        run(2, h, quiet)
+        assert quiet.getvalue() == ""
+    shards = sorted(p.name for p in tmp_path.glob("pr.txt.h*.w*"))
+    assert len(shards) > 4 and {n.split(".")[2] for n in shards} == {"h0", "h1"}
+    assert merge_shards(str(tmp_path / "pr.txt")) == len(shards)
+    assert (tmp_path / "pr.txt").read_text() == whole.getvalue()
+    assert whole.getvalue().count("\n") > 100

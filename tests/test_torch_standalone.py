@@ -61,10 +61,11 @@ def test_port_file_list_is_whole():
                 "engine/merge_context.py", "engine/mbias.py",
                 "engine/perread.py", "engine/svg.py", "ops/semantics.py",
                 "ops/pileup4.py", "parallel/device.py",
-                "parallel/programs.py", "utils/profiling.py",
+                "parallel/programs.py", "parallel/mesh.py",
+                "parallel/distributed.py", "utils/profiling.py",
                 "utils/simulate.py"):
         assert os.path.join("methyldackel_tpu_torch", rel) in names, rel
-    assert len(PORT_FILES) >= 42
+    assert len(PORT_FILES) >= 44
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -239,17 +240,37 @@ def test_cli_without_card_fails_loudly(tmp_path):
 
 
 def test_multi_host_extract_is_refused(tmp_path, monkeypatch):
-    """The port is one host: run_extract raises for nHosts > 1 and names
-    the roadmap item instead of importing the JAX package's merge."""
+    """What this test once refused now runs, through the port's own
+    parallel.distributed (the ast walk above covers it): run_extract with
+    nHosts > 1 writes the shards of its windows
+    through the port's own parallel.distributed, and the shards of both
+    hosts merge to the one-host file."""
     from methyldackel_tpu_torch.config import Config
     from methyldackel_tpu_torch.engine.extract import run_extract
+    from methyldackel_tpu_torch.parallel.distributed import merge_shards
 
     _small_input(tmp_path)
-    cfg = Config()
-    cfg.FastaName, cfg.BAMName = str(tmp_path / "g.fa"), str(tmp_path / "r.bam")
-    cfg.nHosts, cfg.hostId = 2, 0
-    with pytest.raises(NotImplementedError, match="A.11"):
-        run_extract(cfg, [None, None, None])
+
+    def run(n_hosts, host_id, path):
+        cfg = Config()
+        cfg.FastaName = str(tmp_path / "g.fa")
+        cfg.BAMName = str(tmp_path / "r.bam")
+        cfg.chunkSize = 10
+        cfg.nHosts, cfg.hostId = n_hosts, host_id
+        cfg.out_paths = [str(path), None, None]
+        with open(path, "a") as fh:
+            run_extract(cfg, [fh if host_id == 0 else None, None, None])
+
+    run(1, 0, tmp_path / "one.bedGraph")
+    for h in (1, 0):
+        run(2, h, tmp_path / "two.bedGraph")
+    assert (tmp_path / "two.bedGraph").read_text() == ""
+    shards = [p.name for p in tmp_path.glob("two.bedGraph.h*.w*")]
+    assert {n.split(".")[2] for n in shards} == {"h0", "h1"}
+    assert merge_shards(str(tmp_path / "two.bedGraph")) == len(shards)
+    want = (tmp_path / "one.bedGraph").read_text()
+    assert want.count("\n") > 3
+    assert (tmp_path / "two.bedGraph").read_text() == want
 
 
 def test_kernel_build_depends_on_included_headers(tmp_path):
