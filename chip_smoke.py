@@ -76,6 +76,13 @@ printing a result:
    stdout and every file must be equal, and the backend's reduction must
    have launched. With ``--busy`` also the default extract under
    MDTPU_NO_PALLAS=1 (the dense dispatch at real windows).
+3b. The product's default scheduling on the same input: ``extract`` with
+   MDTPU_STEAL unset (host-lane workers beside the card lane) at -@ 1 and
+   -@ 4, each byte-identical to the host engine, with the windows each lane
+   took (``windows_host_steal``) and the kernel launches. Then the three
+   step modes of ``methyldackel_tpu_torch.bench`` (e2e, pallas, xla) at the
+   bench's sizes, each exact against the host semantics and each moving
+   only its kernels' counters; their result heads as one JSON line.
 4. Side routes on a small input with indel and '=' reads: single-window
    dispatch, the window-space group, CHG+CHH, the 4-channel program, v2,
    v2 with --minOppositeDepth; and a ~900x deep input whose counts overflow
@@ -1357,6 +1364,81 @@ def side_input(dirpath, seed=7):
     write_bam(os.path.join(dirpath, "r.bam"), [("chrS", glen)], recs)
 
 
+def default_scheduling(fa, bam, host_dir, reset_counts, read_counts):
+    """Phase 3b, first half: the default ``extract`` as a user runs it,
+    MDTPU_STEAL unset (``min(-@, cores - 1)`` host-lane workers beside the
+    card lane), at -@ 1 and -@ 4, each byte-identical to the host engine's
+    output in ``host_dir``; prints how the windows split between the lanes
+    and the kernel launches."""
+    from methyldackel_tpu_torch.utils import profiling
+
+    card = card_line()
+    saved = os.environ.pop("MDTPU_STEAL", None)
+    try:
+        for threads in (1, 4):
+            d = os.path.join(WORK, f"default_at{threads}")
+            os.makedirs(d)
+            args = ([] if threads == 1 else ["-@", str(threads)]) \
+                + [fa, bam, "-o", "out"]
+            stats = profiling.STATS
+            stats.__init__()
+            stats.enabled = True
+            reset_counts()
+            try:
+                dt, backend = run_port(args, d, {"MDTPU_ENGINE": "cuda"})
+            finally:
+                stats.enabled = False
+            counts = read_counts()
+            same_outputs(d, host_dir, ["out_CpG.bedGraph"])
+            windows = stats.n["windows"]
+            steal = stats.n["windows_host_steal"]
+            print(f"[3b] default extract with MDTPU_STEAL unset, -@ "
+                  f"{threads}, 2,000,000 reads: {2e6 / dt:,.0f} reads/s "
+                  f"({dt:.2f} s); {windows} windows, windows_host_steal "
+                  f"{steal}, card lane {windows - steal}; kernel launches "
+                  f"{counts}; out_CpG.bedGraph byte-identical to the host "
+                  f"engine's ({card})", flush=True)
+            if backend.host_routed != 0 or steal <= 0 \
+                    or (windows - steal > 0) != (counts["pileup2"] > 0):
+                raise AssertionError(f"-@ {threads}: the lanes do not add "
+                                     "up")
+    finally:
+        if saved is not None:
+            os.environ["MDTPU_STEAL"] = saved
+
+
+def bench_steps():
+    """Phase 3b, second half: the three step modes of
+    ``methyldackel_tpu_torch.bench`` on the card at the bench's sizes (50,000
+    pairs of 150 bp over a 1 Mb window, 10 iterations), each checked
+    against the host semantics by the bench, each moving exactly its
+    kernels' launch counters. Prints the three result heads as one JSON
+    line."""
+    from methyldackel_tpu_torch import bench
+
+    card = card_line()
+    kernels = {"e2e": ("pileup2", "pileup4_nq"),
+               "pallas": ("arbitrate", "pileup4_qual"), "xla": ()}
+    heads = []
+    for mode, names in kernels.items():
+        ref_ascii, batch, extra = bench.step_batches(mode, 50_000, 150)
+        before = bench.launch_counts()
+        t0 = time.perf_counter()
+        head = bench.step_bench(mode, batch, ref_ascii, bench.W_BENCH, 10,
+                                device="cuda", extra=extra)
+        moved = {k: v - before[k] for k, v in bench.launch_counts().items()}
+        print(f"[3b] bench step {mode}: {head['value']:,.1f} reads/s, "
+              f"{head['vs_baseline']}x the host window step "
+              f"({head['host_window_reads_per_s']:,.1f}); exact against the "
+              f"host semantics; kernel launches {moved}; "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        if any((moved[k] > 0) != (k in names) for k in moved):
+            raise AssertionError(f"bench step {mode} launched {moved}")
+        heads.append(head)
+        del batch, extra
+    print(json.dumps({"bench_steps": heads}), flush=True)
+
+
 def build_all(build, sources):
     """nvcc for every kernel source at once, one process each; then load
     them. Returns {source: seconds}."""
@@ -1892,6 +1974,7 @@ def main() -> int:
         return 1
     # the port and its own host stack; none of it may pull in jax or the
     # JAX package
+    from methyldackel_tpu_torch import bench
     from methyldackel_tpu_torch.io import native
     from methyldackel_tpu_torch.ops import arbitrate as ar
     from methyldackel_tpu_torch.ops import build
@@ -1904,9 +1987,7 @@ def main() -> int:
         p4.LAUNCHES["qual"] = 0
         ar.LAUNCHES = 0
 
-    def read_counts():
-        return {"pileup2": pk.LAUNCHES, "pileup4_nq": p4.LAUNCHES["nq"],
-                "pileup4_qual": p4.LAUNCHES["qual"], "arbitrate": ar.LAUNCHES}
+    read_counts = bench.launch_counts
 
     # ---- phase 1: device
     t_start = time.perf_counter()
@@ -2136,6 +2217,14 @@ def main() -> int:
             if backend.launches["dense"] <= 0 or backend.host_routed != 0:
                 raise AssertionError("the dense route missed its program")
             busy_share("dense dispatch", args, d_dense, env)
+
+        # ---- phase 3b: the product's default scheduling, the bench's steps
+        default_scheduling(fa, bam, os.path.join(WORK, "host0"),
+                           reset_counts, read_counts)
+        t0 = time.perf_counter()
+        bench_steps()
+        print(f"[3b] the bench's three step modes took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         # ---- phase 4: side routes
         side = os.path.join(WORK, "side")

@@ -14,6 +14,7 @@ from methyldackel_tpu.io.bam import BamFile
 from methyldackel_tpu.utils.simulate import write_synthetic_input
 from methyldackel_tpu_torch import cli as port_cli
 from methyldackel_tpu_torch.parallel import select_backend
+from methyldackel_tpu_torch.utils import profiling
 from util_bam import write_bam
 from test_synthetic_e2e import write_fa
 
@@ -71,9 +72,10 @@ def _scenario_methylkit(d):
 
 
 def _run_both(monkeypatch, d, args, port_env=None):
-    """Reference host engine in d/host, the port (CPU backend, every window
-    on the device lane) in d/port, same -o prefix. Returns the port's
-    backend."""
+    """Reference host engine in d/host, the port (CPU backend; every window
+    on the device lane unless ``port_env`` sets MDTPU_STEAL, or unsets it
+    with None for the product's default hybrid) in d/port, same -o prefix.
+    Returns the port's backend."""
     (d / "host").mkdir()
     (d / "port").mkdir()
     monkeypatch.setenv("MDTPU_ENGINE", "host")
@@ -81,7 +83,10 @@ def _run_both(monkeypatch, d, args, port_env=None):
     assert ref_cli.main(["extract", *args]) == 0
     monkeypatch.setenv("MDTPU_STEAL", "0")
     for k, v in (port_env or {}).items():
-        monkeypatch.setenv(k, v)
+        if v is None:
+            monkeypatch.delenv(k)
+        else:
+            monkeypatch.setenv(k, v)
     monkeypatch.chdir(d / "port")
     rc, backend = port_cli.extract(args, device="cpu")
     assert rc == 0
@@ -103,6 +108,16 @@ def test_port_cli_matches_host_engine(tmp_path, monkeypatch, scenario):
     assert backend.host_routed == 0
 
 
+def _host_lane_workers(env, args):
+    """The host-lane workers run_extract starts: MDTPU_STEAL as set (0 when
+    _run_both leaves it), or when it is unset min(-@, cores - 1)."""
+    steal = env.get("MDTPU_STEAL", "0")
+    if steal is not None:
+        return max(0, int(steal))
+    threads = int(args[args.index("-@") + 1]) if "-@" in args else 1
+    return min(threads, max(0, (os.cpu_count() or 1) - 1))
+
+
 @pytest.fixture(scope="module")
 def synthetic_input(tmp_path_factory):
     d = tmp_path_factory.mktemp("syn")
@@ -116,6 +131,10 @@ def synthetic_input(tmp_path_factory):
     ({"MDTPU_BATCH_WINDOWS": "1"}, []),
     ({"MDTPU_CANDSPACE": "0"}, []),
     ({"MDTPU_STEAL": "1"}, ["-@", "2"]),
+    # the product's default scheduling: MDTPU_STEAL unset starts
+    # min(-@, cores - 1) host-lane workers beside the device lane
+    ({"MDTPU_STEAL": None}, []),
+    ({"MDTPU_STEAL": None}, ["-@", "4"]),
     ({}, ["--CHG", "--CHH", "--mergeContext"]),
     ({}, ["--cytosine_report"]),
     ({"MDTPU_FUSED": "v2"}, []),
@@ -125,12 +144,19 @@ def synthetic_input(tmp_path_factory):
 ])
 def test_port_cli_synthetic_windows(tmp_path, monkeypatch, synthetic_input,
                                     env, extra):
-    """Ten windows of a simulated WGBS run through every group route."""
+    """Ten windows of a simulated WGBS run through every group route; the
+    host lane takes windows exactly when MDTPU_STEAL is not 0."""
     fa, bam = synthetic_input
+    stats = profiling.Stats()
+    stats.enabled = True
+    monkeypatch.setattr(profiling, "STATS", stats)
     backend = _run_both(monkeypatch, tmp_path,
                         ["--chunkSize", "3000", *extra, fa, bam, "-o", "o"],
                         port_env=env)
     assert backend.host_routed == 0
+    assert stats.n["windows"] == 10
+    stolen = stats.n["windows_host_steal"]
+    assert (stolen > 0) == (_host_lane_workers(env, extra) > 0), stolen
 
 
 def test_min_opposite_depth_is_routed_and_counted(tmp_path, monkeypatch,
